@@ -5,16 +5,29 @@
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. the card (nvidia-smi name and power limit, torch and CUDA versions);
-2. build of the fused MG-PCG kernel (csrc/mgfused.cu) from the sources;
-3. the kernel against its plain PyTorch version on the card, at m = 1025
-   on a deep-contact Schur state made with numpy from a seed: matvec,
-   restriction, prolongation, one V-cycle, a whole solve, chunk-size
-   invariance (m = 257), a zero right-hand side, and their times;
-4. the main path: the 1024^2 mixed-precision pc="mg" LVPP obstacle solve
-   (2,101,250 dofs), checked for convergence, feasibility and kernel
-   launches, plus a 32^2 solve on the card held against the same solve
-   on the CPU;
-5. a JSON line of the kernels, then the JSON status line.
+2. build of the CUDA kernels (csrc/mgfused.cu and csrc/dia.cu) from the
+   sources, one nvcc for each, started together;
+3. the fused MG-PCG kernel against its plain PyTorch version on the card,
+   at m = 1025 on a deep-contact Schur state made with numpy from a seed:
+   matvec, restriction, prolongation, one V-cycle, a whole solve,
+   chunk-size invariance (m = 257), a zero right-hand side, and their
+   times;
+4. the DIA SpMV kernel against its plain version: the 1024^2 P1 operator
+   in f64 and f32 and the reference golden's 17x13 shape, and its times;
+5. the fused DIA-CG kernels (K1, K2 and the chunked solve) against their
+   plain version: the reference golden's SPD system, a 1025^2 Jacobi-
+   scaled deep-contact Schur operator, chunk-size invariance (m = 257), a
+   zero right-hand side, maxiter, and their times;
+6. the main path, mixed precision with pc="mg": a 32^2 solve on the card
+   held against the same solve on the CPU, then the 1024^2 LVPP obstacle
+   solve (2,101,250 dofs), checked for convergence, feasibility and
+   kernel launches;
+7. the main path with pc="jacobi": the same two solves, the 1024^2
+   solution held against the mg one, and solve_fused() at 32^2;
+8. a JSON line of the kernels, then the JSON status line.
+
+The kernel launch counters are set to 0 just before each 1024^2 solve and
+read just after it.
 """
 
 from __future__ import annotations
@@ -67,6 +80,29 @@ def deep_contact_state(m: int, seed: int):
     return alpha, free, B, C, w0, b, np.sqrt(diagS)
 
 
+def spd_dia_system(n: int, nx: int, seed: int):
+    """The random SPD 7-diagonal DIA system of the reference's fused
+    DIA-CG golden (tests/test_pallas_ops.py:36), as numpy f64 arrays:
+    (offsets, data (7, n), b, the dense solution)."""
+    rng = np.random.default_rng(seed)
+    offsets = (-nx - 1, -nx, -1, 0, 1, nx, nx + 1)
+    sym = {off: k for k, off in enumerate(offsets)}
+    data = np.zeros((7, n))
+    for k, off in enumerate(offsets):
+        if off > 0:
+            vals = -rng.random(n) * 0.5
+            vals[n - off:] = 0.0
+            data[k] = vals
+            data[sym[-off]][off:] = vals[:n - off]
+    data[sym[0]] = 4.0 + np.abs(data).sum(axis=0)
+    A = np.zeros((n, n))
+    for k, off in enumerate(offsets):
+        i = np.arange(max(0, -off), min(n, n - off))
+        A[i, i + off] = data[k][i]
+    b = rng.standard_normal(n)
+    return offsets, data, b, np.linalg.solve(A, b)
+
+
 def grids_on(dev, m: int, seed: int):
     """(alpha, b, B, C, whier): the deep-contact state as (m, m) f32
     tensors on dev, with the level diagonals of the V-cycle."""
@@ -93,6 +129,84 @@ def timed(fn, reps: int = 3):
     return statistics.median(times), out
 
 
+def per_call_ms(fn, calls: int = 50, reps: int = 3) -> float:
+    """Median over reps runs of the device time per call of fn(), each run
+    `calls` calls back to back between two CUDA events (after a warm-up
+    call)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(calls):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1) / calls)
+    return statistics.median(times)
+
+
+def device_ms(fn, names, calls: int = 50) -> dict:
+    """Device time per launch in ms of each kernel whose name holds one of
+    `names`, from torch.profiler over `calls` calls of fn (after a
+    warm-up call). Fails if the profiler saw no launch of one of them."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    out = {}
+    for name in names:
+        hits = [e for e in events if name in e.key and e.device_time_total > 0]
+        count = sum(e.count for e in hits)
+        check(count > 0, f"the profiler saw {name} on the device")
+        out[name] = sum(e.device_time_total for e in hits) / count / 1e3
+    return out
+
+
+def p1_operator(dev, nx: int, ny: int):
+    """(offsets, data f64): the DIA stiffness of the P1 obstacle solver on
+    the nx x ny-cell rectangle mesh of [-1, 1]^2, on dev."""
+    from proximalgalerkin_torch.mesh import rectangle_mesh
+    from proximalgalerkin_torch.models.obstacle_p1 import P1ObstacleSolver
+    mesh = rectangle_mesh(nx, ny, p0=(-1.0, -1.0), p1=(1.0, 1.0))
+    dia = P1ObstacleSolver(mesh, device=dev).dia
+    return dia.offsets, dia.data
+
+
+def dia_cg_system(dev, offsets, data, m: int, seed: int,
+                  m2d_scale: float = 1.0):
+    """(data_eff, b) in f32 on dev: the masked, Jacobi-scaled Schur
+    operator of the mixed Jacobi-CG (effective_dia) on the P1 operator
+    (offsets, data) at the deep-contact state of the given seed, with its
+    m2d (w0 at free rows) times m2d_scale, and its right-hand side.
+    m2d_scale = 0 leaves the scaled Laplacian, on which f32 CG runs
+    thousands of iterations without reaching its noise floor."""
+    from proximalgalerkin_torch.models.obstacle_p1 import effective_dia
+    alpha, free, _, _, w0, b, _ = deep_contact_state(m, seed)
+    m2d = np.where(free, w0.astype(np.float64), 0.0) * m2d_scale
+    sqinv = 1.0 / np.sqrt(np.where(free, 4.0 * alpha + m2d, 1.0))
+
+    def t(a, dt=torch.float32):
+        return torch.as_tensor(a, dtype=dt, device=dev)
+
+    eff = effective_dia(offsets, data.to(torch.float32), t(free, torch.bool),
+                        t(sqinv), t(m2d), float(np.float32(alpha)))
+    return eff, t(b)
+
+
+def residual_ratio(offsets, data, b, x) -> float:
+    """|b - A x| / |b|, evaluated in f64."""
+    from proximalgalerkin_torch.ops.dia_spmv import dia_spmv_reference
+    b64 = b.double()
+    r = b64 - dia_spmv_reference(offsets, data.double(), x.double())
+    return float(torch.linalg.norm(r) / torch.linalg.norm(b64))
+
+
 def phase_card():
     print("== phase 1: the card", flush=True)
     if not torch.cuda.is_available():
@@ -113,14 +227,24 @@ def phase_card():
 
 def phase_build():
     print("== phase 2: build", flush=True)
-    from proximalgalerkin_torch.ops import mgfused
-    t0 = time.time()
-    report = mgfused.build(force=True)
-    print(f"build {time.time() - t0:.2f} s", flush=True)
-    for line in report.splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            print("  ptxas " + line.strip().split("ptxas info    : ")[-1],
-                  flush=True)
+    from concurrent.futures import ThreadPoolExecutor
+    from proximalgalerkin_torch.ops import dia_spmv, mgfused
+
+    def one(mod):
+        t0 = time.time()
+        report = mod.build(force=True)
+        return time.time() - t0, report
+
+    with ThreadPoolExecutor(2) as ex:
+        futs = {name: ex.submit(one, mod)
+                for name, mod in (("mgfused", mgfused), ("dia", dia_spmv))}
+        done = {name: f.result() for name, f in futs.items()}
+    for name, (secs, report) in done.items():
+        print(f"build csrc/{name}.cu {secs:.2f} s", flush=True)
+        for line in report.splitlines():
+            if "registers" in line or "Compiling entry" in line:
+                print("  ptxas " + line.strip().split("ptxas info    : ")[-1],
+                      flush=True)
 
 
 def phase_kernel(dev) -> dict:
@@ -183,12 +307,174 @@ def phase_kernel(dev) -> dict:
     return {"max_abs_err": max_abs, "ms": ms_k, "plain_ms": ms_p}
 
 
-def phase_main(dev) -> int:
-    print("== phase 4: main path", flush=True)
+def phase_dia_spmv(dev, offsets, data) -> dict:
+    print("== phase 4: DIA SpMV kernel against plain version", flush=True)
+    from proximalgalerkin_torch.ops.dia_spmv import (dia_spmv,
+                                                     dia_spmv_reference)
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 2)
+    n = int(data.shape[1])
+    x64 = torch.randn(n, generator=gen, dtype=torch.float64).to(dev)
+    timing = {}
+    for dt, bound in ((torch.float64, 1e-15), (torch.float32, 1e-6)):
+        d, x = data.to(dt), x64.to(dt)
+        yk = dia_spmv(offsets, d, x)
+        yp = dia_spmv_reference(offsets, d, x)
+        err = rel_max(yk, yp)
+        ms_k = device_ms(lambda: dia_spmv(offsets, d, x), ["k_spmv"])
+        ms_k = ms_k["k_spmv"]
+        call_k = per_call_ms(lambda: dia_spmv(offsets, d, x))
+        ms_p = per_call_ms(lambda: dia_spmv_reference(offsets, d, x))
+        print(f"spmv {str(dt)[6:]} n={n} bitwise {torch.equal(yk, yp)} "
+              f"max rel diff {err:.3e} (bound {bound:g}); kernel {ms_k:.4f} "
+              f"ms device ({call_k:.4f} ms per call), plain {ms_p:.4f} ms "
+              "per call (median of 3 runs of 50)", flush=True)
+        check(err <= bound, f"spmv {dt}")
+        if dt == torch.float64:
+            timing = {"max_abs_err": float((yk - yp).abs().max()),
+                      "ms": ms_k, "plain_ms": ms_p}
+    # the reference golden's shape: 17 x 13 cells, f32
+    offs_s, data_s = p1_operator(dev, 17, 13)
+    d = data_s.to(torch.float32)
+    x = torch.randn(int(d.shape[1]), generator=gen).to(dev)
+    yk, yp = dia_spmv(offs_s, d, x), dia_spmv_reference(offs_s, d, x)
+    err = rel_max(yk, yp)
+    print(f"spmv float32 17x13 bitwise {torch.equal(yk, yp)} max rel diff "
+          f"{err:.3e} (bound 1e-6)", flush=True)
+    check(err <= 1e-6, "spmv 17x13")
+    return timing
+
+
+def phase_dia_cg(dev, offsets, data) -> tuple:
+    print("== phase 5: fused DIA-CG kernels against plain version",
+          flush=True)
+    from proximalgalerkin_torch.ops import dia_cg
+    f32 = torch.float32
+
+    # the reference golden: random SPD 7-diagonal system, f64
+    offs_g, data_g, b_g, x_ref = spd_dia_system(800, 25, SEED)
+    dg = torch.as_tensor(data_g, device=dev)
+    bg = torch.as_tensor(b_g, device=dev)
+    xk, ik = dia_cg.solve(offs_g, dg, bg, 1e-12, 500)
+    xp, ip = dia_cg.fused_dia_cg_reference(offs_g, dg, bg, 1e-12, 500)
+    ek = np.linalg.norm(xk.cpu().numpy() - x_ref) / np.linalg.norm(x_ref)
+    ep = np.linalg.norm(xp.cpu().numpy() - x_ref) / np.linalg.norm(x_ref)
+    print(f"golden n=800 f64 its kernel {ik} plain {ip}, |x-x_dense|/"
+          f"|x_dense| kernel {ek:.3e} plain {ep:.3e} (bound 1e-9, 0 < its "
+          "< 100)", flush=True)
+    check(ek <= 1e-9 and ep <= 1e-9 and 0 < ik < 100 and 0 < ip < 100,
+          "golden SPD system")
+
+    # K1 and K2 alone, on the Jacobi-scaled deep-contact operator
+    m = int(round(np.sqrt(int(data.shape[1]))))
+    eff, b = dia_cg_system(dev, offsets, data, m, SEED)
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 4)
+    p = torch.randn(m * m, generator=gen).to(dev)
+    x = torch.randn(m * m, generator=gen).to(dev)
+    beta, a = float(np.float32(0.37)), float(np.float32(0.21))
+    pn, Ap, _ = k1k = dia_cg.kernel_k1(offsets, eff, b, p, beta)
+    k1p = dia_cg.k1_reference(offsets, eff, b, p, beta)
+    k2k = dia_cg.kernel_k2(x.clone(), b.clone(), pn, Ap, a)
+    k2p = dia_cg.k2_reference(x, b, pn, Ap, a)
+    xs, rs = x.clone(), b.clone()          # K2 updates these in place
+    timings = []
+    for name, outk, outp, fk, fp in (
+            ("K1", k1k, k1p,
+             lambda: dia_cg.kernel_k1(offsets, eff, b, p, beta),
+             lambda: dia_cg.k1_reference(offsets, eff, b, p, beta)),
+            ("K2", k2k, k2p,
+             lambda: dia_cg.kernel_k2(xs, rs, pn, Ap, a),
+             lambda: dia_cg.k2_reference(x, b, pn, Ap, a))):
+        err = max(rel_max(u, v) for u, v in zip(outk, outp))
+        bitwise = all(torch.equal(u, v) for u, v in zip(outk, outp))
+        call_k, ms_p = per_call_ms(fk), per_call_ms(fp)
+        print(f"{name} m={m} bitwise {bitwise} max rel diff {err:.3e} "
+              f"(bound 1e-6); kernel {call_k:.4f} ms per call, plain "
+              f"{ms_p:.4f} ms per call (median of 3 runs of 50)",
+              flush=True)
+        check(err <= 1e-6, name)
+        timings.append({"max_abs_err": max(float((u - v).abs().max())
+                                           for u, v in zip(outk, outp)),
+                        "plain_ms": ms_p})
+
+    # whole solves at tol 1e-5
+    tol, maxiter = 1e-5, 40 * m
+    ms_k, (xk, ik) = timed(lambda: dia_cg.solve(offsets, eff, b, tol,
+                                                maxiter))
+    ms_p, (xp, ip) = timed(lambda: dia_cg.fused_dia_cg_reference(
+        offsets, eff, b, tol, maxiter))
+    rk = residual_ratio(offsets, eff, b, xk)
+    rp = residual_ratio(offsets, eff, b, xp)
+    dx = float(torch.linalg.norm(xk - xp) / torch.linalg.norm(xp))
+    print(f"solve m={m} tol {tol:g} its kernel {ik} plain {ip} (bound "
+          f"max(3, 2%)), |b-Sx|/|b| kernel {rk:.3e} plain {rp:.3e} (bound "
+          f"{1.5 * tol:g}), |x-xp|/|xp| {dx:.3e}, bitwise "
+          f"{torch.equal(xk, xp)}; kernel {ms_k:.3f} ms, plain {ms_p:.3f} "
+          "ms (median of 3)", flush=True)
+    check(ik > 0 and abs(ik - ip) <= max(3, 0.02 * ip), "solve iterations")
+    check(rk <= 1.5 * tol and rp <= 1.5 * tol, "solve residual")
+
+    # time per iteration over a fixed 2,000 iterations, on the scaled
+    # Laplacian (the deep-contact system reaches f32 underflow sooner)
+    its = 2000
+    effl, bl = dia_cg_system(dev, offsets, data, m, SEED, m2d_scale=0.0)
+    ms_k, (_, ik) = timed(lambda: dia_cg.solve(
+        offsets, effl, bl, 1e-30, its, stall_guard=0.0))
+    ms_p, (_, ip) = timed(lambda: dia_cg.fused_dia_cg_reference(
+        offsets, effl, bl, 1e-30, its, stall_guard=0.0))
+    print(f"per iteration m={m}: kernel {ms_k / ik:.4f} ms ({ik} its), "
+          f"plain {ms_p / ip:.4f} ms ({ip} its) (median of 3)", flush=True)
+    check(ik == ip == its, "2,000 iterations")
+    # device time per launch of each kernel of the chunk, in the solve
+    names = ["k_k1", "k_alpha", "k_k2", "k_end", "k_flush"]
+    dev_ms = device_ms(lambda: dia_cg.solve(
+        offsets, effl, bl, 1e-30, 256, stall_guard=0.0), names, calls=4)
+    busy = sum(dev_ms[k] for k in names[:4])
+    print("device ms per launch in the solve: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in dev_ms.items()) + f"; one iteration's "
+        f"kernels {busy:.4f} ms of {ms_k / ik:.4f} ms (busy share "
+        f"{busy / (ms_k / ik):.3f})", flush=True)
+    timings[0]["ms"], timings[1]["ms"] = dev_ms["k_k1"], dev_ms["k_k2"]
+    del effl
+
+    # chunk invariance, zero right-hand side, maxiter
+    offs2, data2 = p1_operator(dev, 256, 256)
+    eff2, b2 = dia_cg_system(dev, offs2, data2, 257, SEED + 3)
+    x64, i64 = dia_cg.solve(offs2, eff2, b2, tol, maxiter, chunk=64)
+    x1, i1 = dia_cg.solve(offs2, eff2, b2, tol, maxiter, chunk=1)
+    print(f"chunk 64/1  m=257 its {i64}/{i1} bitwise equal "
+          f"{bool(torch.equal(x64, x1))}")
+    check(i64 == i1 > 0 and torch.equal(x64, x1), "chunk invariance")
+    x0, i0 = dia_cg.solve(offsets, eff, torch.zeros_like(b), tol, maxiter)
+    print(f"b = 0       m={m} its {i0} max|x| {float(x0.abs().max())}")
+    check(i0 == 0 and float(x0.abs().max()) == 0.0, "zero rhs")
+    _, i7 = dia_cg.solve(offsets, eff, b, 1e-30, 7, stall_guard=0.0,
+                         chunk=3)
+    print(f"maxiter 7   m={m} its {i7}", flush=True)
+    check(i7 == 7, "maxiter")
+    del eff, eff2
+    return timings[0], timings[1]
+
+
+def reset_counters():
+    from proximalgalerkin_torch.ops import dia_cg, dia_spmv, mgfused
+    mgfused.solve.launches = 0
+    dia_spmv.dia_spmv.launches = 0
+    dia_cg.solve.launches = 0
+
+
+def read_counters() -> dict:
+    from proximalgalerkin_torch.ops import dia_cg, dia_spmv, mgfused
+    return {"fused_mg_pcg": mgfused.solve.launches,
+            "dia_spmv": dia_spmv.dia_spmv.launches,
+            "dia_cg": dia_cg.solve.launches}
+
+
+def drive_main(dev, pc: str, n: int = 1024):
+    """The 32^2 card-vs-CPU check, then the n^2 solve with pc; returns
+    (the solver, its result, the launch counts of the n^2 solve)."""
     from proximalgalerkin_torch.mesh import rectangle_mesh
     from proximalgalerkin_torch.models.obstacle_p1 import P1ObstacleSolver
-    from proximalgalerkin_torch.ops import mgfused
-    kw = dict(alpha_cap=1e2, outer_tol=1e-8, mixed_precision=True, pc="mg")
+    kw = dict(alpha_cap=1e2, outer_tol=1e-8, mixed_precision=True, pc=pc)
 
     # the repo's own check (the reference's fused-vs-plain trajectory
     # test): the kernel path on the card against the plain path on the
@@ -198,34 +484,67 @@ def phase_main(dev) -> int:
     r_h = P1ObstacleSolver(mesh, device="cpu", **kw).solve(max_outer=6)
     du = float(np.abs(r_c.u - r_h.u).max())
     print(f"32^2 card vs cpu: newton {r_c.newton_per_outer} vs "
-          f"{r_h.newton_per_outer}, max|du| {du:.3e} (atol 5e-9)")
+          f"{r_h.newton_per_outer}, cg {r_c.cg_its_total} vs "
+          f"{r_h.cg_its_total}, max|du| {du:.3e} (atol 5e-9)")
     check(r_c.newton_per_outer == r_h.newton_per_outer,
           "32^2 Newton trajectory")
     check(bool(np.allclose(r_c.u, r_h.u, atol=5e-9)), "32^2 u")
 
     t0 = time.time()
-    mesh = rectangle_mesh(1024, 1024, p0=(-1.0, -1.0), p1=(1.0, 1.0))
+    mesh = rectangle_mesh(n, n, p0=(-1.0, -1.0), p1=(1.0, 1.0))
     solver = P1ObstacleSolver(mesh, device=dev, **kw)
     torch.cuda.synchronize()
     setup = time.time() - t0
-    mgfused.solve.launches = 0
+    reset_counters()
     t0 = time.time()
     res = solver.solve()
     torch.cuda.synchronize()
     elapsed = time.time() - t0
-    launches = mgfused.solve.launches
+    counts = read_counters()
     feas = float((res.u - solver.phi.cpu().numpy()).min())
-    print(f"1024^2 dofs {2 * solver.N} setup {setup:.2f} s solve "
+    print(f"{n}^2 pc={pc} dofs {2 * solver.N} setup {setup:.2f} s solve "
           f"{elapsed:.2f} s outer {res.outer_iterations} newton "
           f"{res.newton_its} cg {res.cg_its_total} feasibility {feas:.3e} "
-          f"launches {launches}")
+          f"launches {counts}")
     print(f"newton_per_outer {res.newton_per_outer}", flush=True)
-    check(res.converged, "1024^2 converged")
+    check(res.converged, f"{n}^2 converged")
     check(res.u.shape == (solver.N,) and bool(np.isfinite(res.u).all()),
           "u finite, of shape (N,)")
     check(feas >= -1e-10, "feasibility")
-    check(launches > 0, "kernel launched on the main path")
-    return launches
+    check(counts["dia_spmv"] > 0, "DIA SpMV kernel launched")
+    return solver, res, counts
+
+
+def phase_main_mg(dev, n: int = 1024):
+    print("== phase 6: main path, mixed + mg", flush=True)
+    _, res, counts = drive_main(dev, "mg", n)
+    check(counts["fused_mg_pcg"] > 0, "MG-PCG kernel launched")
+    return res.u, counts
+
+
+def phase_main_jacobi(dev, u_mg, n: int = 1024):
+    print("== phase 7: main path, mixed + jacobi", flush=True)
+    from proximalgalerkin_torch.mesh import rectangle_mesh
+    from proximalgalerkin_torch.models.obstacle_p1 import P1ObstacleSolver
+    _, res, counts = drive_main(dev, "jacobi", n)
+    rel = float(np.linalg.norm(res.u - u_mg) / np.linalg.norm(u_mg))
+    print(f"{n}^2 |u_jacobi - u_mg|/|u_mg| {rel:.3e} (bound 1e-6)",
+          flush=True)
+    check(counts["dia_cg"] > 0, "DIA-CG kernels launched")
+    check(rel <= 1e-6, "jacobi and mg solutions agree")
+
+    mesh = rectangle_mesh(32, 32, p0=(-1.0, -1.0), p1=(1.0, 1.0))
+    s = P1ObstacleSolver(mesh, device=dev, alpha_cap=1e2, outer_tol=1e-8,
+                         mixed_precision=True, pc="jacobi")
+    a, b = s.solve(), s.solve_fused()
+    du = float(np.abs(a.u - b.u).max())
+    print(f"32^2 solve_fused vs solve: outer {b.outer_iterations}/"
+          f"{a.outer_iterations} newton {b.newton_its}/{a.newton_its} "
+          f"max|du| {du}", flush=True)
+    check(a.converged and b.converged and du == 0.0
+          and b.outer_iterations == a.outer_iterations
+          and b.newton_its == a.newton_its, "solve_fused is solve")
+    return counts
 
 
 def main():
@@ -234,12 +553,31 @@ def main():
     torch.cuda.set_device(dev)
     phase_build()
     timing = phase_kernel(dev)
-    launches = phase_main(dev)
-    print(json.dumps({"kernels": [dict(
-        name="fused_mg_pcg", route="cuda",
-        source="proximalgalerkin_torch/csrc/mgfused.cu",
-        replaces="ops/mgfused.py:237 FusedMgCg._kernel (JAX reference package)",
-        launches=launches, **timing)]}))
+    offsets, data = p1_operator(dev, 1024, 1024)
+    t_spmv = phase_dia_spmv(dev, offsets, data)
+    t_k1, t_k2 = phase_dia_cg(dev, offsets, data)
+    del data
+    u_mg, c_mg = phase_main_mg(dev)
+    c_jac = phase_main_jacobi(dev, u_mg)
+
+    def entry(name, source, replaces, launches, timing, **extra):
+        return dict(name=name, route="cuda",
+                    source=f"proximalgalerkin_torch/csrc/{source}",
+                    replaces=f"{replaces} (JAX reference package)",
+                    launches=launches, **timing, **extra)
+
+    print(json.dumps({"kernels": [
+        entry("fused_mg_pcg", "mgfused.cu",
+              "ops/mgfused.py:237 FusedMgCg._kernel",
+              c_mg["fused_mg_pcg"], timing),
+        entry("dia_spmv", "dia.cu", "ops/pallas_spmv.py:26 _dia_kernel",
+              c_mg["dia_spmv"] + c_jac["dia_spmv"], t_spmv,
+              launches_by_path={"mg": c_mg["dia_spmv"],
+                                "jacobi": c_jac["dia_spmv"]}),
+        entry("dia_cg_k1", "dia.cu", "ops/pallas_cg.py:118 k1_kernel",
+              c_jac["dia_cg"], t_k1),
+        entry("dia_cg_k2", "dia.cu", "ops/pallas_cg.py:151 k2_kernel",
+              c_jac["dia_cg"], t_k2)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

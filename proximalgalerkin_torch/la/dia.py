@@ -2,7 +2,7 @@
 
 For matrices whose nonzeros live on a small set of diagonals (structured
 meshes, or any mesh after a bandwidth-reducing dof ordering) SpMV is a
-handful of shifted multiply-adds: no gathers.
+handful of shifted multiply-adds: no gathers (ops/dia_spmv.py).
 
 y[i] = sum_d data[d, i] * x[i + off[d]]   (zero outside [0, N))
 """
@@ -14,6 +14,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..ops.dia_spmv import dia_spmv
 
 
 @dataclass
@@ -44,20 +46,9 @@ class DiaMatrix:
 
     def spmv(self, x: torch.Tensor, data: Optional[torch.Tensor] = None
              ) -> torch.Tensor:
-        """Shifted-slice SpMV: one multiply-add per diagonal."""
-        d = self.data if data is None else data
-        y = torch.zeros_like(x)
-        n = x.shape[0]
-        for i, off in enumerate(self.offsets):
-            if off == 0:
-                y += d[i] * x
-            elif off > 0:
-                # x[i + off] for i < n - off; zero tail
-                y[:n - off] += d[i, :n - off] * x[off:]
-            else:
-                k = -off
-                y[k:] += d[i, k:] * x[:n - k]
-        return y
+        """y = A x (ops/dia_spmv: the CUDA kernel on a CUDA tensor, the
+        shifted-slice plain version on the CPU)."""
+        return dia_spmv(self.offsets, self.data if data is None else data, x)
 
     def diagonal(self, data: Optional[torch.Tensor] = None) -> torch.Tensor:
         d = self.data if data is None else data

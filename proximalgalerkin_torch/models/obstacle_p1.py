@@ -24,9 +24,15 @@ Branches of the inner solve:
   mixed, pc="mg"     f32 fused MG-PCG (ops/mgfused: the CUDA kernel on a
                      CUDA device, its plain version on the CPU) inside two
                      f64 refinement passes
-  mixed, pc="jacobi" f32 Jacobi-CG inside two f64 refinement passes; on a
-                     CUDA device this needs the fused Jacobi-CG kernel,
-                     which is not ported yet (ROADMAP B2), and raises
+  mixed, pc="jacobi" f32 Jacobi-CG inside two f64 refinement passes: on
+                     the DIA operator the fused DIA-CG (ops/dia_cg: the
+                     CUDA kernels on a CUDA device, their plain version on
+                     the CPU) on the Jacobi-scaled operator folded into one
+                     DIA matrix (effective_dia); on ELL the un-fused `_cg`
+
+On a CUDA device every DIA SpMV (f64 residuals, Schur right-hand sides,
+refinement matvecs, back-substitution) runs the DIA kernel of
+ops/dia_spmv.
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ from ..la.dia import DiaMatrix
 from ..la.ell import EllMatrix, EllPattern
 from ..mesh.mesh import Mesh
 from ..native import scatter_add
-from ..ops import mg, mgfused
+from ..ops import dia_cg, mg, mgfused
 from ..spaces import FunctionSpace
 from .obstacle import spherical_cap_obstacle
 
@@ -81,6 +87,36 @@ def _cg(matvec, b, Minv, tol, maxiter, stall_guard=_CG_STALL_GUARD):
     (pure-f64 callers, which have no refinement wrap)."""
     return mg.pcg(matvec, b, lambda r: Minv * r, tol, maxiter,
                   stall_window=_CG_STALL_WINDOW, stall_guard=stall_guard)
+
+
+def effective_dia(offsets, A32: torch.Tensor, free: torch.Tensor,
+                  sqinv32: torch.Tensor, m2d32: torch.Tensor,
+                  alpha32: float) -> torch.Tensor:
+    """The masked, Jacobi-scaled f32 Schur operator of the mixed Jacobi-CG
+    folded into one DIA matrix (ndiags, N), as the reference builds it for
+    its fused DIA-CG (models/obstacle_p1.py:576-597):
+
+        eff[d, i] = fs[i] * alpha * A[d, i] * fs[i + off[d]]
+        eff[0, i] += m2d[i] / diagS[i] + (1 - free[i]) / diagS[i]
+
+    with fs = free * diagS^-1/2 (identity rows where not free, whose diagS
+    is 1), fs[j] = 0 outside [0, N)."""
+    fs = torch.where(free, sqinv32, 0.0)
+    n = fs.shape[0]
+    notfree = torch.where(free, 0.0, 1.0).to(f32)
+    rows = []
+    for k, off in enumerate(offsets):
+        shifted = torch.zeros_like(fs)
+        if 0 <= off < n:
+            shifted[:n - off] = fs[off:]
+        elif 0 < -off < n:
+            shifted[-off:] = fs[:n + off]
+        row = fs * alpha32 * A32[k] * shifted
+        if off == 0:
+            row = (row + m2d32 * sqinv32 * sqinv32
+                   + notfree * sqinv32 * sqinv32)
+        rows.append(row)
+    return torch.stack(rows)
 
 
 def _assemble_host(mesh: Mesh, V: FunctionSpace, pattern: EllPattern,
@@ -199,11 +235,6 @@ class P1ObstacleSolver:
         if pc not in ("jacobi", "mg"):
             raise ValueError(f"pc must be 'jacobi' or 'mg', got {pc!r}")
         device = torch.device(device)
-        if mixed_precision and pc != "mg" and device.type == "cuda":
-            raise NotImplementedError(
-                "mixed_precision=True with pc='jacobi' on a CUDA device "
-                "needs the fused Jacobi-CG kernel (ROADMAP B2), which is "
-                "not ported yet; use pc='mg' or mixed_precision=False")
         self.mesh = mesh
         self.device = device
         self.dtype = dtype
@@ -323,6 +354,17 @@ class P1ObstacleSolver:
 
         sqinv32 = sqinv.to(f32)
         m2d32 = m2d.to(f32)
+        if self.dia is not None:
+            data_eff = effective_dia(self.dia.offsets, self.A32, free,
+                                     sqinv32, m2d32, alpha32)
+
+            def solve32(b64):
+                bt = (b64 * sqinv).to(f32)
+                xt, its = dia_cg.solve(self.dia.offsets, data_eff, bt, tol32,
+                                       self.cg_max)
+                return xt.to(dt) * sqinv, its
+            return solve32
+
         ones32 = torch.ones_like(sqinv32)
 
         def S32t(vt):
@@ -453,8 +495,11 @@ class P1ObstacleSolver:
             alphas[k] = alpha
         return alphas
 
-    def solve(self, max_outer: int = 100, verbose: bool = False
-              ) -> P1ObstacleResult:
+    def _lvpp(self, max_outer: int, verbose: bool, inclusive: bool):
+        """The outer LVPP loop over the precomputed alpha schedule. Stops
+        after the outer step whose increment is below outer_tol (at or
+        below it when inclusive). Returns (u, psi, outer steps, Newton
+        total, CG total, newton_per_outer, increments)."""
         N, dt, dev = self.N, self.dtype, self.device
         u = torch.zeros(N, dtype=dt, device=dev)
         psi = torch.ones(N, dtype=dt, device=dev)
@@ -464,7 +509,6 @@ class P1ObstacleSolver:
         increments: List[float] = []
         total = 0
         cg_total = 0
-        converged = False
         k_done = 0
         for k, alpha in enumerate(self.alpha_schedule(max_outer)):
             alpha = float(alpha)
@@ -479,13 +523,34 @@ class P1ObstacleSolver:
             if verbose:
                 print(f"outer {k + 1} alpha={alpha:.4g} newton={nits} "
                       f"cg={cg_its} inc={inc:.3e}", flush=True)
-            if inc < self.outer_tol:
-                converged = True
+            if inc < self.outer_tol or (inclusive and inc == self.outer_tol):
                 break
             u_prev = u
+        return u, psi, k_done, total, cg_total, per_outer, increments
 
+    def solve(self, max_outer: int = 100, verbose: bool = False
+              ) -> P1ObstacleResult:
+        u, psi, k_done, total, cg_total, per_outer, increments = self._lvpp(
+            max_outer, verbose, inclusive=False)
         return P1ObstacleResult(
             u=u.cpu().numpy(), psi=psi.cpu().numpy(),
             outer_iterations=k_done, newton_its=total,
             newton_per_outer=per_outer, increments=increments,
-            converged=converged, cg_its_total=cg_total)
+            converged=bool(increments) and increments[-1] < self.outer_tol,
+            cg_its_total=cg_total)
+
+    def solve_fused(self, max_outer: int = 100) -> P1ObstacleResult:
+        """The whole LVPP solve with totals only, the counterpart of the
+        reference's one-program solve_fused (models/obstacle_p1.py:704):
+        it stops once the increment is at or below outer_tol, or when the
+        alphas run out, and keeps no per-step records (newton_per_outer
+        is empty, increments holds the last one). Its u is that of
+        solve()."""
+        u, psi, k_done, total, cg_total, _, increments = self._lvpp(
+            max_outer, False, inclusive=True)
+        inc = increments[-1] if increments else float("inf")
+        return P1ObstacleResult(
+            u=u.cpu().numpy(), psi=psi.cpu().numpy(),
+            outer_iterations=k_done, newton_its=total, newton_per_outer=[],
+            increments=[inc], converged=inc < self.outer_tol,
+            cg_its_total=cg_total)

@@ -30,15 +30,12 @@ right-hand side returns x = 0 after 0 iterations.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from . import _nvcc
 from .mg import _levels_for, k5_apply, vcycle
 
 OMEGA = 0.8
@@ -46,13 +43,6 @@ COARSE_SWEEPS = 24
 STALL_WINDOW = 16
 STALL_GUARD = 1e4
 _TINY = float(np.finfo(np.float32).tiny)
-
-_CSRC = Path(__file__).resolve().parents[1] / "csrc"
-_SRC = _CSRC / "mgfused.cu"
-_BUILD = _CSRC / "build"
-_SO = _BUILD / "libmgfused.so"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
 # slots of the kernel's device state vector (csrc/mgfused.cu SC_*)
 _SC_IT, _SC_LIVE, _SC_LEN = 0, 7, 16
@@ -180,41 +170,17 @@ def fused_mg_pcg_reference(b, B, C, whier: Sequence[torch.Tensor],
 
 # ------------------------------------------------------------- kernel
 
-def _nvcc() -> str:
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin/nvcc"
-    if cand.exists():
-        return str(cand)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the MG-PCG kernel cannot be "
-                           "built (set CUDA_HOME)")
-    return found
-
-
 def build(force: bool = False) -> str:
     """Compile csrc/mgfused.cu into csrc/build/libmgfused.so when the
     library is missing, older than the source, or force is set. Returns
     nvcc's report (registers and shared memory, from -Xptxas -v)."""
-    if (not force and _SO.exists()
-            and _SO.stat().st_mtime >= _SRC.stat().st_mtime):
-        return ""
-    _BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = _BUILD / f"libmgfused.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-           str(_SRC)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr}")
-    tmp.replace(_SO)
-    return proc.stdout + proc.stderr
+    return _nvcc.build("mgfused", force)
 
 
 def _lib() -> ctypes.CDLL:
     global _lib_handle
     if _lib_handle is None:
-        build()
-        lib = ctypes.CDLL(str(_SO))
+        lib = _nvcc.load("mgfused")
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.mgf_scratch_floats.restype = ctypes.c_longlong
         lib.mgf_scratch_floats.argtypes = [I]
@@ -240,16 +206,6 @@ def _raise_on(err: int, what: str):
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _require_cuda(*ts):
-    for t in ts:
-        if t.device.type != "cuda":
-            raise ValueError(f"kernel call needs CUDA tensors, got {t.device}")
-
-
 def _scratch(lib, m: int, dev) -> torch.Tensor:
     return torch.empty(int(lib.mgf_scratch_floats(m)), dtype=torch.float32,
                        device=dev)
@@ -266,7 +222,7 @@ def _kernel_solve(b, B, C, whier, alpha_s, tol, maxiter, chunk):
     xb = torch.zeros_like(b)
     scratch = _scratch(lib, m, dev)
     sc = torch.zeros(_SC_LEN, dtype=torch.float32, device=dev)
-    stream = _stream(b)
+    stream = _nvcc.stream_of(b)
     first = 1
     while True:
         err = lib.mgf_chunk(
@@ -293,7 +249,7 @@ def solve(b, B, C, whier: Sequence[torch.Tensor], alpha_s: float,
     if b.device.type == "cpu":
         return fused_mg_pcg_reference(b, B, C, whier, alpha_s, tol,
                                       maxiter, chunk)
-    _require_cuda(b)
+    _nvcc.require_cuda(b)
     return _kernel_solve(b, B, C, whier, alpha_s, tol, maxiter, chunk)
 
 
@@ -304,7 +260,7 @@ solve.launches = 0
 
 def kernel_matvec(p, B, C, alpha_s: float):
     """The kernel's S p, launched alone."""
-    _require_cuda(p, B, C)
+    _nvcc.require_cuda(p, B, C)
     lib, m = _lib(), int(p.shape[0])
     for name, t in (("p", p), ("B", B), ("C", C)):
         _check_grid(name, t, (m, m), p.device)
@@ -313,34 +269,34 @@ def kernel_matvec(p, B, C, alpha_s: float):
                        device=p.device)
     _raise_on(lib.mgf_matvec(B.data_ptr(), C.data_ptr(), p.data_ptr(),
                              Ap.data_ptr(), part.data_ptr(), _f32(alpha_s),
-                             m, _stream(p)), "mgf_matvec")
+                             m, _nvcc.stream_of(p)), "mgf_matvec")
     return Ap
 
 
 def kernel_restrict(f):
     """The kernel's full-weighting restriction, launched alone."""
-    _require_cuda(f)
+    _nvcc.require_cuda(f)
     lib, m = _lib(), int(f.shape[0])
     _check_grid("f", f, (m, m), f.device)
     if m < 3 or m % 2 == 0:
         raise ValueError(f"restriction needs an odd m >= 3, got {m}")
     mc = (m - 1) // 2 + 1
     c = torch.empty((mc, mc), dtype=torch.float32, device=f.device)
-    _raise_on(lib.mgf_restrict(f.data_ptr(), c.data_ptr(), m, _stream(f)),
-              "mgf_restrict")
+    _raise_on(lib.mgf_restrict(f.data_ptr(), c.data_ptr(), m,
+                               _nvcc.stream_of(f)), "mgf_restrict")
     return c
 
 
 def kernel_prolong_add(e, x):
     """x += P e on the fine grid, in place; returns x."""
-    _require_cuda(e, x)
+    _nvcc.require_cuda(e, x)
     mc = int(e.shape[0])
     if mc < 2:
         raise ValueError(f"prolongation needs a coarse m >= 2, got {mc}")
     _check_grid("e", e, (mc, mc), e.device)
     _check_grid("x", x, (2 * mc - 1, 2 * mc - 1), e.device)
     _raise_on(_lib().mgf_prolong_add(e.data_ptr(), x.data_ptr(),
-                                     int(e.shape[0]), _stream(e)),
+                                     int(e.shape[0]), _nvcc.stream_of(e)),
               "mgf_prolong_add")
     return x
 
@@ -348,7 +304,7 @@ def kernel_prolong_add(e, x):
 def kernel_pc(r, B, whier: Sequence[torch.Tensor], alpha_s: float):
     """One preconditioner application z = sqf * V(sqf * r) by the
     kernel's V-cycle."""
-    _require_cuda(r, B)
+    _nvcc.require_cuda(r, B)
     lib = _lib()
     m, _ = _check_inputs(r, B, B, whier)
     wflat = torch.cat([w.reshape(-1) for w in whier])
@@ -356,5 +312,5 @@ def kernel_pc(r, B, whier: Sequence[torch.Tensor], alpha_s: float):
     scratch = _scratch(lib, m, r.device)
     _raise_on(lib.mgf_pc(B.data_ptr(), wflat.data_ptr(), r.data_ptr(),
                          z.data_ptr(), scratch.data_ptr(), _f32(alpha_s), m,
-                         _stream(r)), "mgf_pc")
+                         _nvcc.stream_of(r)), "mgf_pc")
     return z

@@ -1,4 +1,4 @@
-"""Tests of the port's CUDA kernel; they need a card and skip without
+"""Tests of the port's CUDA kernels; they need a card and skip without
 one. This file imports no jax, so on a machine with a card and without
 jax it runs alone, without the suite's conftest:
 
@@ -11,9 +11,10 @@ import torch
 
 from proximalgalerkin_torch.mesh import rectangle_mesh
 from proximalgalerkin_torch.models.obstacle_p1 import P1ObstacleSolver
-from proximalgalerkin_torch.ops import mg, mgfused
+from proximalgalerkin_torch.ops import dia_cg, mg, mgfused
+from proximalgalerkin_torch.ops.dia_spmv import dia_spmv, dia_spmv_reference
 
-from chip_smoke import grids_on
+from chip_smoke import dia_cg_system, grids_on, p1_operator, residual_ratio
 
 pytestmark = pytest.mark.gpu
 
@@ -21,7 +22,7 @@ pytestmark = pytest.mark.gpu
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the MG-PCG kernel is CUDA only")
+        pytest.skip("needs a CUDA card: the port's kernels are CUDA only")
     return torch.device("cuda")
 
 
@@ -83,3 +84,77 @@ def test_solver_on_card_matches_cpu(cuda):
     r_h = P1ObstacleSolver(mesh, device="cpu", **kw).solve(max_outer=6)
     assert r_c.newton_per_outer == r_h.newton_per_outer
     assert np.allclose(r_c.u, r_h.u, atol=5e-9)
+
+
+@pytest.mark.parametrize("m", [12, 33, 257])
+def test_dia_spmv_matches_plain(cuda, m):
+    """Same sums in the same order: bitwise expected; bounds 1e-15 (f64)
+    and 1e-6 (f32) relative."""
+    offsets, data = p1_operator(cuda, m - 1, m - 1)
+    x = torch.as_tensor(np.random.default_rng(m).normal(size=m * m),
+                        device=cuda)
+    for dt, bound in ((torch.float64, 1e-15), (torch.float32, 1e-6)):
+        d, xd = data.to(dt), x.to(dt)
+        before = dia_spmv.launches
+        y = dia_spmv(offsets, d, xd)
+        assert dia_spmv.launches == before + 1
+        assert _rel(y, dia_spmv_reference(offsets, d, xd)) <= bound
+
+
+@pytest.mark.parametrize("m", [12, 33, 257])
+def test_dia_cg_kernels_match_plain(cuda, m):
+    offsets, data = p1_operator(cuda, m - 1, m - 1)
+    eff, b = dia_cg_system(cuda, offsets, data, m, 0)
+    rng = np.random.default_rng(m)
+    p = torch.as_tensor(rng.normal(size=m * m), dtype=torch.float32,
+                        device=cuda)
+    for u, v in zip(dia_cg.kernel_k1(offsets, eff, b, p, 0.375),
+                    dia_cg.k1_reference(offsets, eff, b, p, 0.375)):
+        assert _rel(u, v) <= 1e-6
+    for u, v in zip(dia_cg.kernel_k2(p.clone(), b.clone(), b, p, 0.25),
+                    dia_cg.k2_reference(p, b, b, p, 0.25)):
+        assert _rel(u, v) <= 1e-6
+    tol = 1e-5
+    before = dia_cg.solve.launches
+    xk, ik = dia_cg.solve(offsets, eff, b, tol, 2000)
+    assert dia_cg.solve.launches > before
+    xp, ip = dia_cg.fused_dia_cg_reference(offsets, eff, b, tol, 2000)
+    assert ik > 0 and abs(ik - ip) <= max(3, 0.02 * ip)
+    assert residual_ratio(offsets, eff, b, xk) <= 1.5 * tol
+    x1, i1 = dia_cg.solve(offsets, eff, b, tol, 2000, chunk=1)
+    assert i1 == ik and torch.equal(x1, xk)
+    x0, i0 = dia_cg.solve(offsets, eff, torch.zeros_like(b), tol, 2000)
+    assert i0 == 0 and float(x0.abs().max()) == 0.0
+    _, i7 = dia_cg.solve(offsets, eff, b, 1e-30, 7, stall_guard=0.0,
+                         chunk=3)
+    assert i7 == 7
+
+
+def test_dia_kernels_reject_bad_inputs(cuda):
+    offsets, data = p1_operator(cuda, 32, 32)
+    eff, b = dia_cg_system(cuda, offsets, data, 33, 0)
+    with pytest.raises(TypeError):
+        dia_cg.solve(offsets, eff.double(), b, 1e-6, 10)
+    with pytest.raises(ValueError):
+        dia_cg.solve(offsets, eff.cpu(), b, 1e-6, 10)
+    with pytest.raises(ValueError):
+        dia_spmv(offsets, data[:, :-1].contiguous(), b.double())
+
+
+def test_mixed_jacobi_on_card_matches_cpu(cuda):
+    """Mixed + jacobi at 32^2: the DIA kernels on the card and their
+    plain versions on the CPU take the same Newton trajectory (atol
+    5e-9); solve_fused on the card gives bitwise the u of solve()."""
+    mesh = rectangle_mesh(32, 32, p0=(-1.0, -1.0), p1=(1.0, 1.0))
+    kw = dict(alpha_cap=1e2, outer_tol=1e-8, mixed_precision=True,
+              pc="jacobi")
+    before = dia_cg.solve.launches
+    s = P1ObstacleSolver(mesh, device=cuda, **kw)
+    r_c = s.solve(max_outer=6)
+    assert dia_cg.solve.launches > before
+    r_h = P1ObstacleSolver(mesh, device="cpu", **kw).solve(max_outer=6)
+    assert r_c.newton_per_outer == r_h.newton_per_outer
+    assert np.allclose(r_c.u, r_h.u, atol=5e-9)
+    a, f = s.solve(), s.solve_fused()
+    assert f.newton_its == a.newton_its
+    assert np.abs(a.u - f.u).max() == 0.0

@@ -5,9 +5,10 @@ port's runs the plain version of its fused MG-PCG. The reference's own
 test shows the two contracts give the same Newton trajectory
 (tests/test_mgfused.py:127-149), which is what is checked here too."""
 
+import json
+
 import numpy as np
 import pytest
-import torch
 
 from proximalgalerkin_tpu.mesh import rectangle_mesh as ref_rectangle_mesh
 from proximalgalerkin_tpu.models.obstacle_p1 import \
@@ -15,9 +16,12 @@ from proximalgalerkin_tpu.models.obstacle_p1 import \
 
 from proximalgalerkin_torch.mesh import rectangle_mesh
 from proximalgalerkin_torch.models.obstacle_p1 import P1ObstacleSolver
+from proximalgalerkin_torch.ops import dia_cg
 
 MIXED_MG = dict(alpha_cap=1e2, outer_tol=1e-8, mixed_precision=True,
                 pc="mg")
+MIXED_JACOBI = dict(alpha_cap=1e2, outer_tol=1e-8, mixed_precision=True,
+                    pc="jacobi")
 
 
 def _meshes(n, **kw):
@@ -93,8 +97,9 @@ def test_f64_mg_matches_jacobi_and_reference():
     dict(mixed_precision=True, pc="mg", cg_forcing="ew"),
 ], ids=["mixed_jacobi", "mixed_mg_ew"])
 def test_other_mixed_branches_match_reference(kw):
-    """The CPU-only mixed Jacobi-CG branch and Eisenstat-Walker forcing:
-    the same Newton counts as the reference, u within 5e-9."""
+    """The mixed Jacobi-CG branch (the port's fused DIA-CG against the
+    reference's XLA Jacobi-CG) and Eisenstat-Walker forcing: the same
+    Newton counts as the reference, u within 5e-9."""
     mr, mt = _meshes(32)
     r_ref = RefSolver(mr, **kw).solve(max_outer=6)
     r = P1ObstacleSolver(mt, device="cpu", **kw).solve(max_outer=6)
@@ -110,15 +115,56 @@ def test_dia_and_ell_paths_agree_on_crossed_mesh():
     assert np.abs(r_dia.u - r_ell.u).max() < 1e-8
 
 
-def test_mixed_jacobi_on_cuda_raises():
-    """The mixed Jacobi-CG branch needs the fused Jacobi-CG kernel on a
-    card, which is not ported yet: it raises before touching the card."""
-    if torch.cuda.is_available():
-        pytest.skip("checks the refusal without a card")
-    _, mt = _meshes(8)
-    with pytest.raises(NotImplementedError, match="B2"):
-        P1ObstacleSolver(mt, device="cuda", mixed_precision=True,
-                         pc="jacobi")
+@pytest.fixture(scope="module")
+def ref_mixed_jacobi_fused_32():
+    """The reference's mixed + jacobi solver at 32^2 with its fused DIA-CG
+    kernels forced into Pallas interpret mode, six outer steps."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("PGTPU_PALLAS", "force")
+        mr, _ = _meshes(32)
+        s = RefSolver(mr, **MIXED_JACOBI)
+        assert s._fused_cg is not None
+        return s, s.solve(max_outer=6)
+
+
+@pytest.mark.parametrize("operator", ["assembled", "from_arrays"])
+def test_mixed_jacobi_matches_reference_fused_kernels(
+        ref_mixed_jacobi_fused_32, operator):
+    """Mixed + jacobi at 32^2: the port's fused DIA-CG (its plain version
+    here) against the reference's fused DIA-CG kernels in interpret mode:
+    the same Newton counts, CG totals within 3%, u within atol 5e-9."""
+    sr, r_ref = ref_mixed_jacobi_fused_32
+    _, mt = _meshes(32)
+    if operator == "assembled":
+        st = P1ObstacleSolver(mt, device="cpu", **MIXED_JACOBI)
+    else:
+        st = P1ObstacleSolver.from_arrays(
+            mt, A_csr_host=sr.A_csr_host, dia_offsets=sr.dia.offsets,
+            dia_data=np.asarray(sr.dia.data), M_L=np.asarray(sr.M_L),
+            phi=np.asarray(sr.phi), interior=np.asarray(sr.interior),
+            device="cpu", **MIXED_JACOBI)
+    before = dia_cg.solve.launches
+    r = st.solve(max_outer=6)
+    assert dia_cg.solve.launches == before       # no kernel on the CPU
+    assert r.newton_per_outer == r_ref.newton_per_outer
+    assert abs(r.cg_its_total - r_ref.cg_its_total) <= 0.03 * \
+        r_ref.cg_its_total
+    assert np.allclose(r.u, r_ref.u, atol=5e-9)
+
+
+def test_solve_fused_matches_solve():
+    """tests/test_obstacle_p1.py:124 for the port: solve_fused gives the
+    outer and Newton totals of solve() and bitwise the same u."""
+    _, mt = _meshes(32)
+    s = P1ObstacleSolver(mt, device="cpu", **MIXED_JACOBI)
+    a = s.solve()
+    b = s.solve_fused()
+    assert b.converged and a.converged
+    assert b.outer_iterations == a.outer_iterations
+    assert b.newton_its == a.newton_its
+    assert b.cg_its_total == a.cg_its_total
+    assert b.newton_per_outer == [] and len(b.increments) == 1
+    assert np.abs(a.u - b.u).max() == 0.0
 
 
 def test_rejected_configurations():
@@ -138,3 +184,18 @@ def test_alpha_schedule_matches_reference():
     np.testing.assert_array_equal(
         P1ObstacleSolver(mt, device="cpu").alpha_schedule(40),
         RefSolver(mr).alpha_schedule(40))
+
+
+@pytest.mark.parametrize("pc,fused", [("mg", False), ("jacobi", True)])
+def test_bench_cli_on_cpu(pc, fused, capsys):
+    """`bench` runs both inner solves and both entry points and prints
+    the reference bench's JSON keys."""
+    from proximalgalerkin_torch.cli import main
+    main(["bench", "-n", "8", "--device", "cpu", "--pc", pc]
+         + (["--fused"] if fused else []))
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["converged"] and out["n"] == 8 and out["dofs"] == 162
+    assert out["cg_its"] > 0 and out["feasibility"] >= -1e-10
+    assert set(out) == {"mode", "elapsed", "n", "dofs", "newton", "outer",
+                        "converged", "feasibility", "cg_its", "membw_gbps",
+                        "esz"}
