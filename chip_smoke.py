@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # the smoke run
+    python3 chip_smoke.py --ab PARENT  # A/B of the 1024^2 mg solve only
 
 Phases, each printing its own lines; any failure exits non-zero:
 
@@ -9,11 +10,15 @@ Phases, each printing its own lines; any failure exits non-zero:
    sources, one nvcc for each, started together;
 3. the fused MG-PCG kernel against its plain PyTorch version on the card,
    at m = 1025 on a deep-contact Schur state made with numpy from a seed:
-   matvec, restriction, prolongation, one V-cycle, a whole solve,
-   chunk-size invariance (m = 257), a zero right-hand side, and their
-   times;
+   its pieces (matvec step, down and up legs of a level, one V-cycle), a
+   whole solve with its time per iteration beside its bound and its
+   device time by kernel and idle share (torch.profiler), chunk-size
+   invariance (64/5/1, m = 257), a zero right-hand side, maxiter, and
+   workspace reuse;
 4. the DIA SpMV kernel against its plain version: the 1024^2 P1 operator
-   in f64 and f32 and the reference golden's 17x13 shape, and its times;
+   in f64 and f32 and the reference golden's 17x13 shape, and its times
+   beside a CSR torch.sparse product of the same operator (a yardstick
+   the port never calls);
 5. the fused DIA-CG kernels (K1, K2 and the chunked solve) against their
    plain version: the reference golden's SPD system, a 1025^2 Jacobi-
    scaled deep-contact Schur operator, chunk-size invariance (m = 257), a
@@ -21,13 +26,19 @@ Phases, each printing its own lines; any failure exits non-zero:
 6. the main path, mixed precision with pc="mg": a 32^2 solve on the card
    held against the same solve on the CPU, then the 1024^2 LVPP obstacle
    solve (2,101,250 dofs), checked for convergence, feasibility and
-   kernel launches;
+   kernel launches, with its time per CG iteration and the device's idle
+   share over outer step 1;
 7. the main path with pc="jacobi": the same two solves, the 1024^2
    solution held against the mg one, and solve_fused() at 32^2;
 8. a JSON line of the kernels, then the JSON status line.
 
 The kernel launch counters are set to 0 just before each 1024^2 solve and
 read just after it.
+
+With --ab PARENT (PARENT: an unpacked copy of another commit of the
+repository), the 1024^2 mixed + mg solve of PARENT's package and of this
+one run in turns (parent, this, this, parent), each in its own process,
+and their times per CG iteration are printed.
 """
 
 from __future__ import annotations
@@ -42,6 +53,7 @@ import numpy as np
 import torch
 
 SEED = 0
+PEAK_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 
 
 def check(cond: bool, what: str):
@@ -168,6 +180,50 @@ def device_ms(fn, names, calls: int = 50) -> dict:
     return out
 
 
+def busy_profile(fn):
+    """Runs fn() once under torch.profiler. Returns (fn's result, wall ms,
+    device busy ms, {kernel: (device ms, launches)}). Busy time is the
+    union of the device intervals the profiler saw."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_kernel = {e.key: (e.device_time_total / 1e3, e.count)
+                 for e in prof.key_averages() if e.device_time_total > 0}
+    return out, wall, busy / 1e3, by_kernel
+
+
+def print_breakdown(title: str, wall: float, busy: float, by_kernel: dict):
+    total = sum(ms for ms, _ in by_kernel.values())
+    print(f"{title}: wall {wall:.3f} ms, device busy {busy:.3f} ms, idle "
+          f"share {1 - busy / wall:.3f}")
+    for name, (ms, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0]):
+        if ms >= 0.005 * total:
+            short = name.replace("(anonymous namespace)::", "")
+            short = short.split("(")[0].split("<")[0][:40]
+            print(f"  {short:40s} {100 * ms / total:5.1f}% {n:7d} launches "
+                  f"{1e3 * ms / n:8.2f} us each")
+
+
+def mg_iteration_bytes(m: int) -> int:
+    """Bytes one MG-PCG iteration must move: B, C, x, r, p and every
+    level's diagonal read once; x, r, p and xb written once (f32)."""
+    from proximalgalerkin_torch.ops.mg import _levels_for
+    return 4 * (9 * m * m + sum(k * k for k in _levels_for(m)))
+
+
 def p1_operator(dev, nx: int, ny: int):
     """(offsets, data f64): the DIA stiffness of the P1 obstacle solver on
     the nx x ny-cell rectangle mesh of [-1, 1]^2, on dev."""
@@ -249,7 +305,7 @@ def phase_build():
 
 def phase_kernel(dev) -> dict:
     print("== phase 3: kernel against plain version", flush=True)
-    from proximalgalerkin_torch.ops import mg, mgfused
+    from proximalgalerkin_torch.ops import mgfused
     m = 1025
     alpha, b, B, C, ws = grids_on(dev, m, SEED)
     gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
@@ -257,25 +313,34 @@ def phase_kernel(dev) -> dict:
     def rand(shape):
         return torch.randn(shape, generator=gen).to(dev)
 
-    p = rand((m, m))
+    p, t0 = rand((m, m)), rand((m, m))
     err = rel_max(mgfused.kernel_matvec(p, B, C, alpha),
                   mgfused.matvec_reference(p, B, C, alpha))
     print(f"matvec      m={m} max rel diff {err:.3e} (bound 1e-6)")
     check(err <= 1e-6, "matvec")
+    beta = 0.375
+    err = max(rel_max(u, v) for u, v in zip(
+        mgfused.kernel_matvec_update(t0, p, B, C, ws[0], alpha, beta),
+        mgfused.matvec_update_reference(t0, p, B, C, ws[0], alpha, beta)))
+    print(f"matvec step m={m} (p' = sqf t0 + beta p, S p') max rel diff "
+          f"{err:.3e} (bound 1e-6)")
+    check(err <= 1e-6, "matvec step")
     f = rand((m, m))
-    err = rel_max(mgfused.kernel_restrict(f), mg.restrict(f))
-    print(f"restrict    m={m} max rel diff {err:.3e} (bound 1e-6)")
-    check(err <= 1e-6, "restrict")
+    err = rel_max(mgfused.kernel_down(f, ws[0], alpha),
+                  mgfused.down_reference(f, ws[0], alpha))
+    print(f"down leg    m={m} max rel diff {err:.3e} (bound 1e-5)")
+    check(err <= 1e-5, "down leg")
     mc = (m - 1) // 2 + 1
-    e, xf = rand((mc, mc)), rand((m, m))
-    err = rel_max(mgfused.kernel_prolong_add(e, xf.clone()),
-                  xf + mg.prolong(e))
-    print(f"prolong+add m={m} max rel diff {err:.3e} (bound 1e-6)")
-    check(err <= 1e-6, "prolong")
+    e = rand((mc, mc))
+    err = rel_max(mgfused.kernel_up(f, ws[0], e, alpha),
+                  mgfused.up_reference(f, ws[0], e, alpha))
+    print(f"up leg      m={m} max rel diff {err:.3e} (bound 1e-5)")
+    check(err <= 1e-5, "up leg")
+    ms, lt = mgfused.level_plan(m)
     err = rel_max(mgfused.kernel_pc(b, B, ws, alpha),
                   mgfused.pc_reference(b, B, ws, alpha))
-    print(f"V-cycle pc  m={m} levels={len(ws)} max rel diff {err:.3e} "
-          "(bound 1e-5)")
+    print(f"V-cycle pc  m={m} levels {ms}, tail from level {lt} max rel "
+          f"diff {err:.3e} (bound 1e-5)")
     check(err <= 1e-5, "V-cycle")
 
     tol, maxiter = 1e-6, 500
@@ -290,21 +355,61 @@ def phase_kernel(dev) -> dict:
           f"|x-xp|/|xp| {xerr:.3e} max abs {max_abs:.3e} (bounds +-3, 1e-4)")
     check(abs(itk - itp) <= 3 and itk > 0, "solve iterations")
     check(xerr <= 1e-4, "solve x")
+    it_bound = mg_iteration_bytes(m) / PEAK_BYTES_PER_S * 1e3
     print(f"time        m={m} kernel solve {ms_k:.3f} ms, plain solve "
-          f"{ms_p:.3f} ms (median of 3, {itk} iterations)", flush=True)
+          f"{ms_p:.3f} ms (median of 3, {itk} iterations); kernel "
+          f"{ms_k / itk:.4f} ms per iteration, bound {it_bound:.4f} ms "
+          f"({mg_iteration_bytes(m) / 1e6:.1f} MB at 3.35 TB/s)", flush=True)
+    _, wall, busy, by_kernel = busy_profile(
+        lambda: mgfused.solve(b, B, C, ws, alpha, tol, maxiter))
+    print_breakdown(f"profile     m={m} solve", wall, busy, by_kernel)
 
     a2, b2, B2, C2, ws2 = grids_on(dev, 257, SEED + 3)
     x64, i64 = mgfused.solve(b2, B2, C2, ws2, a2, tol, maxiter, chunk=64)
     x5, i5 = mgfused.solve(b2, B2, C2, ws2, a2, tol, maxiter, chunk=5)
-    print(f"chunk 64/5  m=257 its {i64}/{i5} bitwise equal "
-          f"{bool(torch.equal(x64, x5))}")
-    check(i64 == i5 and torch.equal(x64, x5), "chunk invariance")
+    x1, i1 = mgfused.solve(b2, B2, C2, ws2, a2, tol, maxiter, chunk=1)
+    print(f"chunk 64/5/1 m=257 its {i64}/{i5}/{i1} bitwise equal "
+          f"{bool(torch.equal(x64, x5) and torch.equal(x64, x1))}")
+    check(i64 == i5 == i1 > 0 and torch.equal(x64, x5)
+          and torch.equal(x64, x1), "chunk invariance")
     x0, i0 = mgfused.solve(torch.zeros_like(b), B, C, ws, alpha, tol,
                            maxiter)
     print(f"b = 0       m={m} its {i0} max|x| {float(x0.abs().max())}",
           flush=True)
     check(i0 == 0 and float(x0.abs().max()) == 0.0, "zero rhs")
-    return {"max_abs_err": max_abs, "ms": ms_k, "plain_ms": ms_p}
+    _, i7 = mgfused.solve(b2, B2, C2, ws2, a2, 1e-30, 7, chunk=3)
+    print(f"maxiter 7   m=257 its {i7}")
+    check(i7 == 7, "maxiter")
+    # a solve with other alpha and b in the same workspace and graphs,
+    # against the same solve in a fresh workspace
+    xr, ir = mgfused.solve(b2.flip(0).contiguous(), B2, C2, ws2, 2.5 * a2,
+                           tol, maxiter)
+    mgfused.release_workspaces()
+    xf, i_f = mgfused.solve(b2.flip(0).contiguous(), B2, C2, ws2, 2.5 * a2,
+                            tol, maxiter)
+    print(f"reuse       m=257 its {ir}/{i_f} bitwise equal to a fresh "
+          f"workspace {bool(torch.equal(xr, xf))}", flush=True)
+    check(ir == i_f and torch.equal(xr, xf), "workspace reuse")
+    return {"max_abs_err": max_abs, "ms": ms_k, "plain_ms": ms_p,
+            "bound_ms": itk * it_bound, "bound_by": "bytes",
+            "library_ms": None}
+
+
+def csr_of(offsets, data):
+    """The DIA operator (offsets, data (ndiag, n)) as a CSR torch.sparse
+    tensor holding every in-range diagonal entry."""
+    n = int(data.shape[1])
+    rows, cols, vals = [], [], []
+    i = torch.arange(n, device=data.device)
+    for k, off in enumerate(offsets):
+        keep = (i + off >= 0) & (i + off < n)
+        rows.append(i[keep])
+        cols.append(i[keep] + off)
+        vals.append(data[k][keep])
+    coo = torch.sparse_coo_tensor(torch.stack([torch.cat(rows),
+                                               torch.cat(cols)]),
+                                  torch.cat(vals), (n, n))
+    return coo.coalesce().to_sparse_csr()
 
 
 def phase_dia_spmv(dev, offsets, data) -> dict:
@@ -324,14 +429,25 @@ def phase_dia_spmv(dev, offsets, data) -> dict:
         ms_k = ms_k["k_spmv"]
         call_k = per_call_ms(lambda: dia_spmv(offsets, d, x))
         ms_p = per_call_ms(lambda: dia_spmv_reference(offsets, d, x))
+        # the yardstick: one CSR product of the same operator
+        csr = csr_of(offsets, d)
+        err_l = rel_max(csr @ x, yp)
+        ms_l = per_call_ms(lambda: csr @ x)
+        nbytes = (d.shape[0] + 2) * d.element_size() * n
+        bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
         print(f"spmv {str(dt)[6:]} n={n} bitwise {torch.equal(yk, yp)} "
               f"max rel diff {err:.3e} (bound {bound:g}); kernel {ms_k:.4f} "
               f"ms device ({call_k:.4f} ms per call), plain {ms_p:.4f} ms "
-              "per call (median of 3 runs of 50)", flush=True)
+              f"per call, CSR torch.sparse {ms_l:.4f} ms per call (nnz "
+              f"{csr.values().numel()}, max rel diff {err_l:.1e}) (median "
+              f"of 3 runs of 50); bound {bound_ms:.4f} ms "
+              f"({nbytes // n} B a row at 3.35 TB/s)", flush=True)
         check(err <= bound, f"spmv {dt}")
         if dt == torch.float64:
             timing = {"max_abs_err": float((yk - yp).abs().max()),
-                      "ms": ms_k, "plain_ms": ms_p}
+                      "ms": ms_k, "plain_ms": ms_p, "bound_ms": bound_ms,
+                      "bound_by": "bytes", "library_ms": ms_l}
+        del csr
     # the reference golden's shape: 17 x 13 cells, f32
     offs_s, data_s = p1_operator(dev, 17, 13)
     d = data_s.to(torch.float32)
@@ -392,9 +508,14 @@ def phase_dia_cg(dev, offsets, data) -> tuple:
               f"{ms_p:.4f} ms per call (median of 3 runs of 50)",
               flush=True)
         check(err <= 1e-6, name)
+        # bytes a row: K1 reads 7 diagonals, r and p and writes p' and
+        # Ap; K2 reads x, p', r and Ap and writes x and r (f32)
+        row_bytes = {"K1": 44, "K2": 24}[name]
         timings.append({"max_abs_err": max(float((u - v).abs().max())
                                            for u, v in zip(outk, outp)),
-                        "plain_ms": ms_p})
+                        "plain_ms": ms_p,
+                        "bound_ms": row_bytes * m * m / PEAK_BYTES_PER_S
+                        * 1e3, "bound_by": "bytes", "library_ms": None})
 
     # whole solves at tol 1e-5
     tol, maxiter = 1e-5, 40 * m
@@ -469,9 +590,42 @@ def read_counters() -> dict:
             "dia_cg": dia_cg.solve.launches}
 
 
-def drive_main(dev, pc: str, n: int = 1024):
+class InnerTimer:
+    """Inside the with block, every mgfused.solve call of the P1 solver
+    is timed (synchronised before and after) and its iterations summed."""
+
+    def __init__(self):
+        self.ms, self.its, self.calls = 0.0, 0, 0
+
+    def __enter__(self):
+        from proximalgalerkin_torch.models import obstacle_p1
+        real, timer = obstacle_p1.mgfused, self
+
+        class Shim:
+            @staticmethod
+            def solve(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                x, its = real.solve(*args, **kwargs)
+                torch.cuda.synchronize()
+                timer.ms += (time.perf_counter() - t0) * 1e3
+                timer.its += its
+                timer.calls += 1
+                return x, its
+
+        self._module, self._real = obstacle_p1, real
+        obstacle_p1.mgfused = Shim
+        return self
+
+    def __exit__(self, *exc):
+        self._module.mgfused = self._real
+
+
+def drive_main(dev, pc: str, n: int = 1024, inner=None):
     """The 32^2 card-vs-CPU check, then the n^2 solve with pc; returns
-    (the solver, its result, the launch counts of the n^2 solve)."""
+    (the solver, its result, the launch counts of the n^2 solve). inner:
+    a context entered around the n^2 solve alone."""
+    import contextlib
     from proximalgalerkin_torch.mesh import rectangle_mesh
     from proximalgalerkin_torch.models.obstacle_p1 import P1ObstacleSolver
     kw = dict(alpha_cap=1e2, outer_tol=1e-8, mixed_precision=True, pc=pc)
@@ -497,8 +651,9 @@ def drive_main(dev, pc: str, n: int = 1024):
     setup = time.time() - t0
     reset_counters()
     t0 = time.time()
-    res = solver.solve()
-    torch.cuda.synchronize()
+    with inner or contextlib.nullcontext():
+        res = solver.solve()
+        torch.cuda.synchronize()
     elapsed = time.time() - t0
     counts = read_counters()
     feas = float((res.u - solver.phi.cpu().numpy()).min())
@@ -515,10 +670,28 @@ def drive_main(dev, pc: str, n: int = 1024):
     return solver, res, counts
 
 
+# the first MG-PCG kernel's numbers as PERF.md records them (one H100
+# 80GB HBM3 at 700 W): ms per CG iteration, idle share over outer step 1
+FIRST_KERNEL_MS_PER_IT, FIRST_KERNEL_IDLE_OUTER1 = 0.1884, 0.35
+
+
 def phase_main_mg(dev, n: int = 1024):
     print("== phase 6: main path, mixed + mg", flush=True)
-    _, res, counts = drive_main(dev, "mg", n)
+    inner = InnerTimer()
+    solver, res, counts = drive_main(dev, "mg", n, inner)
     check(counts["fused_mg_pcg"] > 0, "MG-PCG kernel launched")
+    check(inner.its == res.cg_its_total, "every CG iteration timed")
+    print(f"{n}^2 mg inner solves: {inner.calls} solves, {inner.ms:.1f} ms "
+          f"of the solve, {inner.ms / inner.its:.4f} ms per CG iteration "
+          f"(bound {mg_iteration_bytes(n + 1) / PEAK_BYTES_PER_S * 1e3:.4f}"
+          f" ms; the first kernel {FIRST_KERNEL_MS_PER_IT} ms, recorded)",
+          flush=True)
+    res1, wall, busy, by_kernel = busy_profile(
+        lambda: solver.solve(max_outer=1))
+    print_breakdown(f"{n}^2 mg outer step 1 ({res1.newton_its} Newton, "
+                    f"{res1.cg_its_total} CG)", wall, busy, by_kernel)
+    print(f"(the first kernel: idle share {FIRST_KERNEL_IDLE_OUTER1} over "
+          "outer step 1, recorded)", flush=True)
     return res.u, counts
 
 
@@ -547,7 +720,60 @@ def phase_main_jacobi(dev, u_mg, n: int = 1024):
     return counts
 
 
+def ab_child():
+    """One 1024^2 mixed + mg solve of the package in the working
+    directory (after a warm-up solve); prints one JSON line."""
+    import os
+    sys.path.insert(0, os.getcwd())
+    from proximalgalerkin_torch.mesh import rectangle_mesh
+    from proximalgalerkin_torch.models.obstacle_p1 import P1ObstacleSolver
+    from proximalgalerkin_torch.ops import mgfused
+    mgfused.build()
+    dev = torch.device("cuda", 0)
+    mesh = rectangle_mesh(1024, 1024, p0=(-1.0, -1.0), p1=(1.0, 1.0))
+    solver = P1ObstacleSolver(mesh, device=dev, alpha_cap=1e2,
+                              outer_tol=1e-8, mixed_precision=True, pc="mg")
+    solver.solve()
+    inner = InnerTimer()
+    t0 = time.perf_counter()
+    with inner:
+        res = solver.solve()
+        torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    _, wall, busy, _ = busy_profile(lambda: solver.solve(max_outer=1))
+    import hashlib
+    print(json.dumps({
+        "package": mgfused.__file__, "solve_s": elapsed,
+        "u_sha256": hashlib.sha256(res.u.tobytes()).hexdigest()[:16],
+        "inner_ms": inner.ms, "cg": res.cg_its_total,
+        "ms_per_cg_iteration": inner.ms / inner.its,
+        "outer": res.outer_iterations, "newton": res.newton_its,
+        "newton_per_outer": res.newton_per_outer,
+        "idle_share_outer1": 1 - busy / wall}))
+
+
+def ab(parent: str):
+    """parent, this, this, parent: the 1024^2 mg solve of each, each in
+    its own process, on this card."""
+    import os
+    phase_card()
+    here = os.path.dirname(os.path.abspath(__file__))
+    for label, root in (("parent", parent), ("this", here), ("this", here),
+                        ("parent", parent)):
+        out = subprocess.run(
+            [sys.executable, os.path.join(here, "chip_smoke.py"),
+             "--ab-child"], cwd=os.path.abspath(root), capture_output=True,
+            text=True, timeout=900)
+        check(out.returncode == 0, f"A/B run in {root}:\n{out.stderr}")
+        print(f"A/B {label}: {out.stdout.strip().splitlines()[-1]}",
+              flush=True)
+
+
 def main():
+    if sys.argv[1:2] == ["--ab-child"]:
+        return ab_child()
+    if sys.argv[1:2] == ["--ab"]:
+        return ab(sys.argv[2])
     phase_card()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)

@@ -1,6 +1,6 @@
 """Command-line interface of the port. One subcommand so far:
 
-    python -m proximalgalerkin_torch bench -n 1024 --device cuda
+    python -m proximalgalerkin_torch bench -n 1024 [--device cuda]
         [--pc {mg,jacobi}] [--fused]
 
 `bench` runs the north-star obstacle benchmark in this process: P1
@@ -91,8 +91,9 @@ def main(argv=None):
     sub = parser.add_subparsers(dest="cmd", required=True)
     p = sub.add_parser("bench", help="north-star obstacle benchmark")
     p.add_argument("-n", type=int, default=1024)
-    p.add_argument("--device", required=True,
-                   help="torch device of the solve, e.g. cuda or cpu")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the solve, e.g. cuda or cpu "
+                        "(default cuda)")
     p.add_argument("--pc", choices=("mg", "jacobi"), default="mg",
                    help="inner preconditioner: fused MG-PCG or fused "
                         "DIA-CG (default mg)")

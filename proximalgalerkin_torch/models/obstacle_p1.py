@@ -220,10 +220,10 @@ class P1ObstacleSolver:
                  cg_forcing: str = "fixed",
                  dtype: torch.dtype = torch.float64,
                  *,
-                 device,
+                 device="cuda",
                  host_arrays: Optional[dict] = None):
-        """device: where every tensor of the solve lives; the caller picks
-        it. host_arrays: the numpy operator (keys of `_assemble_host`) to
+        """device: where every tensor of the solve lives (the card unless
+        the caller asks for the CPU). host_arrays: the numpy operator (keys of `_assemble_host`) to
         use instead of assembling it from the mesh (see from_arrays)."""
         if cg_forcing not in ("fixed", "ew"):
             raise ValueError(

@@ -25,18 +25,27 @@ right-hand side returns x = 0 after 0 iterations.
 
 `solve` dispatches on the device of its tensors: a CPU tensor takes
 `fused_mg_pcg_reference`, a CUDA tensor launches the kernel or raises.
+
+On the card a solve runs in a workspace kept per (device, m): its grids,
+its device state vector and the CUDA graphs of its chunks, captured once
+per (chunk, first) and replayed by one host call per chunk
+(csrc/mgfused.cu). Every solve of one m on one device uses that
+workspace, so such solves must not run at once on two streams or
+threads. The V-cycle is split as `level_plan` says: one down-leg and one
+up-leg grid kernel per level above the tail, then every level from the
+first with m <= 65 in one block.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from . import _nvcc
-from .mg import _levels_for, k5_apply, vcycle
+from .mg import _levels_for, k5_apply, prolong, restrict, vcycle
 
 OMEGA = 0.8
 COARSE_SWEEPS = 24
@@ -44,9 +53,15 @@ STALL_WINDOW = 16
 STALL_GUARD = 1e4
 _TINY = float(np.finfo(np.float32).tiny)
 
+# the largest level the one-block tail takes; the tail's levels then fit
+# one block's shared memory (at most 92 KB, csrc/mgfused.cu tail_bytes)
+_TAIL_MAX = 65
+
 # slots of the kernel's device state vector (csrc/mgfused.cu SC_*)
-_SC_IT, _SC_LIVE, _SC_LEN = 0, 7, 16
-_TPB = 256
+_SC_IT, _SC_LIVE, _SC_BETA = 0, 7, 10
+_SC_ALPHA, _SC_LEN = 16, 32
+# workspace slots whose offsets the wrapper reads (csrc/mgfused.cu OFF_*)
+_OFF_B, _OFF_C, _OFF_W, _OFF_R0, _OFF_XB, _OFF_Z, _OFF_SC = range(7)
 
 _lib_handle = None
 
@@ -110,6 +125,65 @@ def matvec_reference(p, B, C, alpha_s: float):
 def pc_reference(r, B, whier: Sequence[torch.Tensor], alpha_s: float):
     """Plain version of one preconditioner application z = sqf V(sqf r)."""
     return _pc(B, whier, _alpha(alpha_s, r.device))(r)
+
+
+def matvec_update_reference(t0, p_old, B, C, w0, alpha_s: float,
+                            beta: float):
+    """Plain version of the kernel's matvec step: p' = sqf t0 + beta p_old
+    (sqf t0 is the preconditioned residual z), returns (p', S p')."""
+    alpha = _alpha(alpha_s, t0.device)
+    beta_t = _alpha(beta, t0.device)
+    pn = B * (4.0 * alpha + w0) * t0 + beta_t * p_old
+    return pn, _matvec(B, C, alpha)(pn)
+
+
+def down_reference(b, w, alpha_s: float):
+    """Plain version of the kernel's down leg of a level: the residual of
+    the pre-smooth from zero, restricted to the next level."""
+    alpha = _alpha(alpha_s, b.device)
+    x = OMEGA * b / (alpha * 4.0 + w)
+    return restrict(b - (alpha * k5_apply(x) + w * x))
+
+
+def up_reference(b, w, e, alpha_s: float):
+    """Plain version of the kernel's up leg of a level: the post-smooth of
+    the pre-smoothed x plus the prolonged coarse correction e."""
+    alpha = _alpha(alpha_s, b.device)
+    d = alpha * 4.0 + w
+    x = OMEGA * b / d + prolong(e)
+    return x + OMEGA * (b - (alpha * k5_apply(x) + w * x)) / d
+
+
+def level_plan(m: int) -> Tuple[List[int], int]:
+    """(level sizes, lt): the kernel's split of the V-cycle. Levels
+    0 .. lt-1 take one down-leg and one up-leg grid kernel each; levels
+    lt .. L-1 run in the one-block tail, which starts at the first level
+    with m <= 65 (lt = L: no such level, and the coarsest level is swept
+    by grid kernels). The kernel takes lt from here."""
+    ms = _levels_for(m)
+    return ms, next((l for l, ml in enumerate(ms) if ml <= _TAIL_MAX),
+                    len(ms))
+
+
+def pc_by_plan_reference(r, B, whier: Sequence[torch.Tensor],
+                         alpha_s: float):
+    """One preconditioner application as the kernel splits it
+    (level_plan): down legs, the bottom of the cycle (the tail or the
+    coarsest sweeps, both the V-cycle of the remaining levels), up legs.
+    The same arithmetic as pc_reference, in the kernel's pieces."""
+    ms, lt = level_plan(int(r.shape[0]))
+    L = len(ms)
+    ws = list(whier)
+    alpha = _alpha(alpha_s, r.device)
+    sqf = B * (4.0 * alpha + ws[0])
+    c = 0 if L == 1 or lt == 0 else min(lt, L - 1)
+    bs = [sqf * r]
+    for l in range(c):
+        bs.append(down_reference(bs[l], ws[l], alpha_s))
+    e = vcycle(ws[c:], alpha, bs[c], 1, OMEGA, COARSE_SWEEPS)
+    for l in range(c - 1, -1, -1):
+        e = up_reference(bs[l], ws[l], e, alpha_s)
+    return sqf * e
 
 
 def fused_mg_pcg_reference(b, B, C, whier: Sequence[torch.Tensor],
@@ -181,69 +255,162 @@ def _lib() -> ctypes.CDLL:
     global _lib_handle
     if _lib_handle is None:
         lib = _nvcc.load("mgfused")
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.mgf_scratch_floats.restype = ctypes.c_longlong
-        lib.mgf_scratch_floats.argtypes = [I]
-        lib.mgf_error_string.restype = ctypes.c_char_p
-        lib.mgf_error_string.argtypes = [I]
-        lib.mgf_chunk.restype = I
-        lib.mgf_chunk.argtypes = [P] * 9 + [I, I, I] + [F] * 5 + [P]
-        lib.mgf_matvec.restype = I
-        lib.mgf_matvec.argtypes = [P] * 5 + [F, I, P]
-        lib.mgf_restrict.restype = I
-        lib.mgf_restrict.argtypes = [P, P, I, P]
-        lib.mgf_prolong_add.restype = I
-        lib.mgf_prolong_add.argtypes = [P, P, I, P]
-        lib.mgf_pc.restype = I
-        lib.mgf_pc.argtypes = [P] * 5 + [F, I, P]
+        P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        pI = ctypes.POINTER(ctypes.c_int)
+        for name, res, args in (
+                ("mgf_error_string", ctypes.c_char_p, [I]),
+                ("mgf_ws_floats", LL, [I, I]),
+                ("mgf_ws_create", P, [I, I, P, P, pI]),
+                ("mgf_ws_offset", LL, [P, I]),
+                ("mgf_ws_destroy", None, [P]),
+                ("mgf_capture", P, [P, I, I, pI]),
+                ("mgf_launch", I, [P, P]),
+                ("mgf_graph_destroy", None, [P]),
+                ("mgf_pc", I, [P, P]),
+                ("mgf_fine_blocks", LL, [I]),
+                ("mgf_matvec", I, [P] * 10 + [I, P]),
+                ("mgf_down", I, [P] * 4 + [I, P]),
+                ("mgf_up", I, [P] * 5 + [I, P])):
+            fn = getattr(lib, name)
+            fn.restype, fn.argtypes = res, args
         _lib_handle = lib
     return _lib_handle
 
 
-def _raise_on(err: int, what: str):
+def _raise_on(err: int, what: str, lib=None):
     if err != 0:
-        msg = _lib().mgf_error_string(err).decode()
+        msg = (lib or _lib()).mgf_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
-def _scratch(lib, m: int, dev) -> torch.Tensor:
-    return torch.empty(int(lib.mgf_scratch_floats(m)), dtype=torch.float32,
-                       device=dev)
+def _graph_key(chunk: int, first: bool) -> Tuple[int, bool]:
+    """A chunk's graph depends on its length and on whether it primes."""
+    return int(chunk), bool(first)
+
+
+class _Workspace:
+    """The kernel's device buffers for one m (with the tail from level
+    lt, level_plan), and the chunk graphs captured over them (one per _graph_key). Every pointer a
+    captured kernel sees stays fixed, so a graph serves every solve."""
+
+    def __init__(self, lib, m: int, lt: int, dev):
+        nf = int(lib.mgf_ws_floats(m, lt))
+        if nf < 0:
+            raise ValueError(f"no workspace for m={m} with the tail at "
+                             f"level {lt}")
+        self.lib, self.m = lib, m
+        self.buf = torch.zeros(nf, dtype=torch.float32, device=dev)
+        self.cnt = torch.zeros(2, dtype=torch.int32, device=dev)
+        err = ctypes.c_int(0)
+        handle = lib.mgf_ws_create(m, lt, self.buf.data_ptr(),
+                                   self.cnt.data_ptr(), ctypes.byref(err))
+        _raise_on(err.value, "mgf_ws_create", lib)
+        if not handle:
+            raise RuntimeError(f"mgf_ws_create failed for m={m}")
+        self.handle = handle
+        self.graphs: Dict[Tuple[int, bool], int] = {}
+
+        def view(slot, size):
+            off = int(lib.mgf_ws_offset(handle, slot))
+            return self.buf[off:off + size]
+
+        n = m * m
+        self.B, self.C = view(_OFF_B, n), view(_OFF_C, n)
+        self.W = view(_OFF_W, sum(k * k for k in _levels_for(m)))
+        self.R0, self.XB = view(_OFF_R0, n), view(_OFF_XB, n)
+        self.Z, self.sc = view(_OFF_Z, n), view(_OFF_SC, _SC_LEN)
+
+    def load(self, B, whier, C=None):
+        """Copies the operator in (on the caller's stream)."""
+        self.B.copy_(B.reshape(-1))
+        if C is not None:
+            self.C.copy_(C.reshape(-1))
+        torch.cat([w.reshape(-1) for w in whier], out=self.W)
+
+    def set_params(self, alpha_s: float, tol: float = 0.0,
+                   maxiter: int = 0):
+        """alpha, tol, maxiter, the stall window and guard into sc."""
+        self.sc[_SC_ALPHA:_SC_ALPHA + 5] = torch.tensor(
+            [_f32(alpha_s), _f32(tol), float(maxiter), float(STALL_WINDOW),
+             STALL_GUARD], dtype=torch.float32)
+
+    def graph(self, chunk: int, first: bool) -> int:
+        """The instantiated graph of a chunk, captured at first use."""
+        key = _graph_key(chunk, first)
+        if key not in self.graphs:
+            err = ctypes.c_int(0)
+            g = self.lib.mgf_capture(self.handle, key[0], int(key[1]),
+                                     ctypes.byref(err))
+            _raise_on(err.value, "mgf_capture", self.lib)
+            if not g:
+                raise RuntimeError("mgf_capture returned no graph")
+            self.graphs[key] = g
+        return self.graphs[key]
+
+    def launch(self, chunk: int, first: bool, stream: int):
+        _raise_on(self.lib.mgf_launch(self.graph(chunk, first), stream),
+                  "mgf_launch", self.lib)
+
+    def close(self):
+        """Destroys the graphs and the workspace (after the device is done
+        with them)."""
+        for g in self.graphs.values():
+            self.lib.mgf_graph_destroy(g)
+        self.graphs.clear()
+        if self.handle:
+            self.lib.mgf_ws_destroy(self.handle)
+            self.handle = None
+
+
+_workspaces: Dict[tuple, _Workspace] = {}
+
+
+def release_workspaces():
+    """Frees every cached workspace and its graphs; the next solve builds
+    them anew."""
+    devices = {key[0] for key in _workspaces}
+    for dev in devices:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    for ws in _workspaces.values():
+        ws.close()
+    _workspaces.clear()
+
+
+def _workspace(m: int, dev) -> _Workspace:
+    """The workspace of m on dev, made at first use and shared by every
+    solve and kernel_pc call there (not reentrant: one at a time)."""
+    key = (dev, m)
+    if key not in _workspaces:
+        _workspaces[key] = _Workspace(_lib(), m, level_plan(m)[1], dev)
+    return _workspaces[key]
 
 
 def _kernel_solve(b, B, C, whier, alpha_s, tol, maxiter, chunk):
-    lib = _lib()
     m, _ = _check_inputs(b, B, C, whier)
-    dev = b.device
-    wflat = torch.cat([w.reshape(-1) for w in whier])
-    x = torch.zeros_like(b)
-    r = b.clone()
-    p = torch.zeros_like(b)
-    xb = torch.zeros_like(b)
-    scratch = _scratch(lib, m, dev)
-    sc = torch.zeros(_SC_LEN, dtype=torch.float32, device=dev)
+    ws = _workspace(m, b.device)
+    ws.load(B, whier, C)
+    ws.R0.copy_(b.reshape(-1))
+    ws.set_params(alpha_s, tol, maxiter)
     stream = _nvcc.stream_of(b)
-    first = 1
+    first = True
     while True:
-        err = lib.mgf_chunk(
-            B.data_ptr(), C.data_ptr(), wflat.data_ptr(), x.data_ptr(),
-            r.data_ptr(), p.data_ptr(), xb.data_ptr(), scratch.data_ptr(),
-            sc.data_ptr(), m, chunk, first, _f32(alpha_s), _f32(tol),
-            float(maxiter), float(STALL_WINDOW), STALL_GUARD, stream)
-        _raise_on(err, "mgf_chunk")
+        ws.launch(chunk, first, stream)
         solve.launches += 1
-        first = 0
+        first = False
         # the one host read of the chunk: iterations and the loop condition
-        it, live = sc[[_SC_IT, _SC_LIVE]].tolist()
+        it, live = ws.sc[[_SC_IT, _SC_LIVE]].tolist()
         if live < 0.5:
-            return xb, int(it)
+            return ws.XB.clone().view(m, m), int(it)
 
 
 def solve(b, B, C, whier: Sequence[torch.Tensor], alpha_s: float,
           tol: float, maxiter: int, chunk: int = 64):
     """Fused MG-PCG solve of S x = b on (m, m) f32 grids; returns
     (x (m, m), iterations). CPU tensors take the plain version; CUDA
-    tensors launch the kernel (solve.launches counts kernel chunks)."""
+    tensors launch the kernel (solve.launches counts kernel chunks). On
+    the card, solves of one m share a workspace: the MG-PCG is not
+    reentrant across streams or threads."""
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     if b.device.type == "cpu":
@@ -258,59 +425,83 @@ solve.launches = 0
 
 # --------------------------------------- kernel pieces, for comparison
 
+def _piece_sc(dev, alpha_s: float, beta: float = 0.0) -> torch.Tensor:
+    sc = torch.zeros(_SC_LEN, dtype=torch.float32)
+    sc[_SC_ALPHA], sc[_SC_BETA] = _f32(alpha_s), _f32(beta)
+    return sc.to(dev)
+
+
+def kernel_matvec_update(t0, p_old, B, C, w0, alpha_s: float, beta: float):
+    """The kernel's matvec step launched alone: (p', S p') with
+    p' = sqf t0 + beta p_old."""
+    _nvcc.require_cuda(t0, p_old, B, C, w0)
+    lib, m = _lib(), int(t0.shape[0])
+    for name, t in (("t0", t0), ("p_old", p_old), ("B", B), ("C", C),
+                    ("w0", w0)):
+        _check_grid(name, t, (m, m), t0.device)
+    pn, Ap = torch.empty_like(t0), torch.empty_like(t0)
+    part = torch.empty(int(lib.mgf_fine_blocks(m)), dtype=torch.float32,
+                       device=t0.device)
+    cnt = torch.zeros(1, dtype=torch.int32, device=t0.device)
+    sc = _piece_sc(t0.device, alpha_s, beta)
+    _raise_on(lib.mgf_matvec(B.data_ptr(), C.data_ptr(), w0.data_ptr(),
+                             t0.data_ptr(), p_old.data_ptr(), pn.data_ptr(),
+                             Ap.data_ptr(), part.data_ptr(), cnt.data_ptr(),
+                             sc.data_ptr(), m, _nvcc.stream_of(t0)),
+              "mgf_matvec")
+    return pn, Ap
+
+
 def kernel_matvec(p, B, C, alpha_s: float):
-    """The kernel's S p, launched alone."""
-    _nvcc.require_cuda(p, B, C)
-    lib, m = _lib(), int(p.shape[0])
-    for name, t in (("p", p), ("B", B), ("C", C)):
-        _check_grid(name, t, (m, m), p.device)
-    Ap = torch.empty_like(p)
-    part = torch.empty(-(-m * m // _TPB), dtype=torch.float32,
-                       device=p.device)
-    _raise_on(lib.mgf_matvec(B.data_ptr(), C.data_ptr(), p.data_ptr(),
-                             Ap.data_ptr(), part.data_ptr(), _f32(alpha_s),
-                             m, _nvcc.stream_of(p)), "mgf_matvec")
-    return Ap
+    """The kernel's S p, launched alone (its matvec step with t0 = 0 and
+    beta = 1, so that p' = p)."""
+    _nvcc.require_cuda(p)
+    zero = torch.zeros_like(p)
+    return kernel_matvec_update(zero, p, B, C, zero, alpha_s, 1.0)[1]
 
 
-def kernel_restrict(f):
-    """The kernel's full-weighting restriction, launched alone."""
-    _nvcc.require_cuda(f)
-    lib, m = _lib(), int(f.shape[0])
-    _check_grid("f", f, (m, m), f.device)
+def kernel_down(b, w, alpha_s: float):
+    """The kernel's down leg of a level above the tail, launched alone."""
+    _nvcc.require_cuda(b, w)
+    lib, m = _lib(), int(b.shape[0])
+    for name, t in (("b", b), ("w", w)):
+        _check_grid(name, t, (m, m), b.device)
     if m < 3 or m % 2 == 0:
         raise ValueError(f"restriction needs an odd m >= 3, got {m}")
     mc = (m - 1) // 2 + 1
-    c = torch.empty((mc, mc), dtype=torch.float32, device=f.device)
-    _raise_on(lib.mgf_restrict(f.data_ptr(), c.data_ptr(), m,
-                               _nvcc.stream_of(f)), "mgf_restrict")
-    return c
+    bc = torch.empty((mc, mc), dtype=torch.float32, device=b.device)
+    sc = _piece_sc(b.device, alpha_s)
+    _raise_on(lib.mgf_down(b.data_ptr(), w.data_ptr(), bc.data_ptr(),
+                           sc.data_ptr(), m, _nvcc.stream_of(b)), "mgf_down")
+    return bc
 
 
-def kernel_prolong_add(e, x):
-    """x += P e on the fine grid, in place; returns x."""
-    _nvcc.require_cuda(e, x)
+def kernel_up(b, w, e, alpha_s: float):
+    """The kernel's up leg of a level above the tail, launched alone."""
+    _nvcc.require_cuda(b, w, e)
     mc = int(e.shape[0])
     if mc < 2:
         raise ValueError(f"prolongation needs a coarse m >= 2, got {mc}")
+    m = 2 * mc - 1
+    for name, t in (("b", b), ("w", w)):
+        _check_grid(name, t, (m, m), e.device)
     _check_grid("e", e, (mc, mc), e.device)
-    _check_grid("x", x, (2 * mc - 1, 2 * mc - 1), e.device)
-    _raise_on(_lib().mgf_prolong_add(e.data_ptr(), x.data_ptr(),
-                                     int(e.shape[0]), _nvcc.stream_of(e)),
-              "mgf_prolong_add")
-    return x
+    t = torch.empty_like(b)
+    sc = _piece_sc(b.device, alpha_s)
+    _raise_on(_lib().mgf_up(b.data_ptr(), w.data_ptr(), e.data_ptr(),
+                            t.data_ptr(), sc.data_ptr(), m,
+                            _nvcc.stream_of(b)), "mgf_up")
+    return t
 
 
 def kernel_pc(r, B, whier: Sequence[torch.Tensor], alpha_s: float):
     """One preconditioner application z = sqf * V(sqf * r) by the
-    kernel's V-cycle."""
+    kernel's V-cycle (in the solve's workspace for this m)."""
     _nvcc.require_cuda(r, B)
-    lib = _lib()
     m, _ = _check_inputs(r, B, B, whier)
-    wflat = torch.cat([w.reshape(-1) for w in whier])
-    z = torch.empty_like(r)
-    scratch = _scratch(lib, m, r.device)
-    _raise_on(lib.mgf_pc(B.data_ptr(), wflat.data_ptr(), r.data_ptr(),
-                         z.data_ptr(), scratch.data_ptr(), _f32(alpha_s), m,
-                         _nvcc.stream_of(r)), "mgf_pc")
-    return z
+    ws = _workspace(m, r.device)
+    ws.load(B, whier)
+    ws.R0.copy_(r.reshape(-1))
+    ws.set_params(alpha_s)
+    _raise_on(ws.lib.mgf_pc(ws.handle, _nvcc.stream_of(r)), "mgf_pc")
+    return ws.Z.clone().view(m, m)

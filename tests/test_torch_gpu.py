@@ -11,7 +11,7 @@ import torch
 
 from proximalgalerkin_torch.mesh import rectangle_mesh
 from proximalgalerkin_torch.models.obstacle_p1 import P1ObstacleSolver
-from proximalgalerkin_torch.ops import dia_cg, mg, mgfused
+from proximalgalerkin_torch.ops import dia_cg, mgfused
 from proximalgalerkin_torch.ops.dia_spmv import dia_spmv, dia_spmv_reference
 
 from chip_smoke import dia_cg_system, grids_on, p1_operator, residual_ratio
@@ -30,19 +30,29 @@ def _rel(a, ref):
     return float((a - ref).abs().max() / ref.abs().max())
 
 
-# 12: one level, all in the one-block coarse kernel; 67 (levels 67, 34)
-# and 100 (one level): the coarsest level is too large for one block and
-# takes the grid-kernel sweeps
-@pytest.mark.parametrize("m", [12, 33, 65, 67, 100, 257])
+# Every split of the V-cycle (mgfused.level_plan): all levels in the
+# one-block tail (12, 17, 33, 35, 65), one level too large for it and
+# swept by grid kernels (100), grid levels above the tail (129, 257,
+# 1025), grid levels above a coarsest level swept by grid kernels (67:
+# levels 67, 34; 131: levels 131, 66)
+@pytest.mark.parametrize("m", [12, 17, 33, 35, 65, 67, 100, 129, 131, 257,
+                               1025])
 def test_kernel_matches_plain(cuda, m):
     alpha, b, B, C, whier = grids_on(cuda, m, 0)
     assert _rel(mgfused.kernel_matvec(b, B, C, alpha),
                 mgfused.matvec_reference(b, B, C, alpha)) <= 1e-6
+    t0 = b / b.abs().max()
+    for u, v in zip(mgfused.kernel_matvec_update(t0, b, B, C, whier[0],
+                                                 alpha, 0.375),
+                    mgfused.matvec_update_reference(t0, b, B, C, whier[0],
+                                                    alpha, 0.375)):
+        assert _rel(u, v) <= 1e-6
     if len(whier) > 1:
-        assert _rel(mgfused.kernel_restrict(b), mg.restrict(b)) <= 1e-6
+        assert _rel(mgfused.kernel_down(b, whier[0], alpha),
+                    mgfused.down_reference(b, whier[0], alpha)) <= 1e-5
         e = whier[1] / whier[1].abs().max()
-        assert _rel(mgfused.kernel_prolong_add(e, b.clone()),
-                    b + mg.prolong(e)) <= 1e-6
+        assert _rel(mgfused.kernel_up(b, whier[0], e, alpha),
+                    mgfused.up_reference(b, whier[0], e, alpha)) <= 1e-5
     assert _rel(mgfused.kernel_pc(b, B, whier, alpha),
                 mgfused.pc_reference(b, B, whier, alpha)) <= 1e-5
     before = mgfused.solve.launches
@@ -50,16 +60,55 @@ def test_kernel_matches_plain(cuda, m):
     assert mgfused.solve.launches > before
     xp, ip = mgfused.fused_mg_pcg_reference(b, B, C, whier, alpha, 1e-6,
                                             500)
-    assert abs(ik - ip) <= 3
+    assert ik > 0 and abs(ik - ip) <= 3
     assert float(torch.linalg.norm(xk - xp)) <= 1e-4 * float(
         torch.linalg.norm(xp))
-    x5, i5 = mgfused.solve(b, B, C, whier, alpha, 1e-6, 500, chunk=5)
-    assert i5 == ik and torch.equal(x5, xk)
+    for chunk in (5, 1):
+        xc, ic = mgfused.solve(b, B, C, whier, alpha, 1e-6, 500,
+                               chunk=chunk)
+        assert ic == ik and torch.equal(xc, xk)
     x0, i0 = mgfused.solve(torch.zeros_like(b), B, C, whier, alpha, 1e-6,
                            500)
     assert i0 == 0 and float(x0.abs().max()) == 0.0
     _, i7 = mgfused.solve(b, B, C, whier, alpha, 1e-30, 7, chunk=3)
     assert i7 == 7
+
+
+@pytest.mark.parametrize("m", [33, 257])
+def test_kernel_reuses_workspace_and_graphs(cuda, m):
+    """Two solves in a row with other alpha and b give the bits of fresh
+    solves (new workspace, new graphs)."""
+    a1, b1, B, C, whier = grids_on(cuda, m, 0)
+    a2, b2 = 2.5 * a1, b1.flip(0).contiguous()
+    tol = 1e-6
+    x1, i1 = mgfused.solve(b1, B, C, whier, a1, tol, 500)
+    x2, i2 = mgfused.solve(b2, B, C, whier, a2, tol, 500)
+    for x, i, a, bb in ((x2, i2, a2, b2), (x1, i1, a1, b1)):
+        mgfused.release_workspaces()
+        xf, itf = mgfused.solve(bb, B, C, whier, a, tol, 500)
+        assert itf == i and torch.equal(xf, x)
+
+
+def test_kernel_underflowing_quotients_give_plain_bits(cuda):
+    """Pinned points (huge diagonal) with a tiny right-hand side, far
+    apart on a zero grid: the pre-smooth and post-smooth quotients at
+    them and at their neighbours underflow into the subnormals, where
+    the kernel divides through f64. The up leg (with e = 0, every stencil
+    sum exact) must give the bits of the plain version."""
+    m, alpha = 33, 37.0
+    b = torch.zeros((m, m), dtype=torch.float32)
+    w = torch.ones((m, m), dtype=torch.float32)
+    for (i, j), bv, wv in (((8, 8), 1e-10, 1e30), ((8, 24), -3e-12, 3e31),
+                           ((24, 8), 7e-9, 1e28), ((24, 24), 2e-20, 1e10),
+                           ((16, 16), 1e-30, 1.0)):
+        b[i, j], w[i, j] = bv, wv
+    b, w = b.to(cuda), w.to(cuda)
+    e = torch.zeros(((m + 1) // 2,) * 2, dtype=torch.float32, device=cuda)
+    tk = mgfused.kernel_up(b, w, e, alpha)
+    tp = mgfused.up_reference(b, w, e, alpha)
+    tiny = torch.finfo(torch.float32).tiny
+    assert int(((tp != 0) & (tp.abs() < tiny)).sum()) >= 10
+    assert torch.equal(tk.view(torch.int32), tp.view(torch.int32))
 
 
 def test_kernel_rejects_bad_inputs(cuda):
@@ -69,7 +118,11 @@ def test_kernel_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError):
         mgfused.solve(b, B, C.cpu(), whier, alpha, 1e-6, 10)
     with pytest.raises(ValueError):
-        mgfused.kernel_prolong_add(whier[1], b[:-1].contiguous())
+        mgfused.kernel_up(b[:-1].contiguous(), b[:-1].contiguous(),
+                          whier[1], alpha)
+    with pytest.raises(ValueError):
+        mgfused.kernel_down(b[:-1, :-1].contiguous(),
+                            b[:-1, :-1].contiguous(), alpha)
 
 
 def test_solver_on_card_matches_cpu(cuda):
