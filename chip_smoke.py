@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
     python3 chip_smoke.py              # the smoke run
-    python3 chip_smoke.py --ab PARENT  # A/B of the 1024^2 mg solve only
+    python3 chip_smoke.py --ab PARENT  # A/B of the 1024^2 solves only
 
 Phases, each printing its own lines; any failure exits non-zero:
 
@@ -20,16 +20,21 @@ Phases, each printing its own lines; any failure exits non-zero:
    beside a CSR torch.sparse product of the same operator (a yardstick
    the port never calls);
 5. the fused DIA-CG kernels (K1, K2 and the chunked solve) against their
-   plain version: the reference golden's SPD system, a 1025^2 Jacobi-
-   scaled deep-contact Schur operator, chunk-size invariance (m = 257), a
-   zero right-hand side, maxiter, and their times;
+   plain version, bit for bit: the reference golden's SPD system (f64), a
+   1025^2 Jacobi-scaled deep-contact Schur operator (f32), 2,000
+   iterations on the scaled Laplacian, chunk-size invariance (64/5/1,
+   m = 257), a zero right-hand side, maxiter, two solves with different
+   matrices in one workspace against fresh workspaces, the kernels the
+   profiler sees in a solve (two per iteration, one graph replay and one
+   host read per chunk), and their times;
 6. the main path, mixed precision with pc="mg": a 32^2 solve on the card
    held against the same solve on the CPU, then the 1024^2 LVPP obstacle
    solve (2,101,250 dofs), checked for convergence, feasibility and
    kernel launches, with its time per CG iteration and the device's idle
    share over outer step 1;
-7. the main path with pc="jacobi": the same two solves, the 1024^2
-   solution held against the mg one, and solve_fused() at 32^2;
+7. the main path with pc="jacobi": the same two solves with the same
+   readings, the 1024^2 solution held against the mg one, and
+   solve_fused() at 32^2;
 8. a JSON line of the kernels, then the JSON status line.
 
 The kernel launch counters are set to 0 just before each 1024^2 solve and
@@ -38,11 +43,14 @@ read just after it.
 With --ab PARENT (PARENT: an unpacked copy of another commit of the
 repository), the 1024^2 mixed + mg solve of PARENT's package and of this
 one run in turns (parent, this, this, parent), each in its own process,
-and their times per CG iteration are printed.
+then the mixed + jacobi solve likewise; each line gives the solve's
+seconds, its time per CG iteration, its counts and a hash of u, and the
+jacobi solutions are held against the mg one.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import statistics
 import subprocess
@@ -476,9 +484,10 @@ def phase_dia_cg(dev, offsets, data) -> tuple:
     ep = np.linalg.norm(xp.cpu().numpy() - x_ref) / np.linalg.norm(x_ref)
     print(f"golden n=800 f64 its kernel {ik} plain {ip}, |x-x_dense|/"
           f"|x_dense| kernel {ek:.3e} plain {ep:.3e} (bound 1e-9, 0 < its "
-          "< 100)", flush=True)
+          f"< 100), bitwise {torch.equal(xk, xp)}", flush=True)
     check(ek <= 1e-9 and ep <= 1e-9 and 0 < ik < 100 and 0 < ip < 100,
           "golden SPD system")
+    check(ik == ip and torch.equal(xk, xp), "golden solve bitwise (f64)")
 
     # K1 and K2 alone, on the Jacobi-scaled deep-contact operator
     m = int(round(np.sqrt(int(data.shape[1]))))
@@ -489,25 +498,31 @@ def phase_dia_cg(dev, offsets, data) -> tuple:
     beta, a = float(np.float32(0.37)), float(np.float32(0.21))
     pn, Ap, _ = k1k = dia_cg.kernel_k1(offsets, eff, b, p, beta)
     k1p = dia_cg.k1_reference(offsets, eff, b, p, beta)
-    k2k = dia_cg.kernel_k2(x.clone(), b.clone(), pn, Ap, a)
+    k2k = dia_cg.kernel_k2(offsets, x, b, pn, Ap, a)
     k2p = dia_cg.k2_reference(x, b, pn, Ap, a)
-    xs, rs = x.clone(), b.clone()          # K2 updates these in place
+    ws = dia_cg._workspace(tuple(offsets), b)
+    grid, smem = ws.k1_shape()
+    print(f"K1 on this card: {grid} blocks, bands of {ws.plan.runs} runs, "
+          f"{ws.plan.stages} stages, {smem} B of shared memory a block; "
+          f"staged segments {list(zip(ws.plan.start, ws.plan.length))}")
+    check(sum(key[1] == m * m for key in dia_cg._workspaces) == 1,
+          "K1, K2 and the solves share one workspace")
     timings = []
     for name, outk, outp, fk, fp in (
             ("K1", k1k, k1p,
              lambda: dia_cg.kernel_k1(offsets, eff, b, p, beta),
              lambda: dia_cg.k1_reference(offsets, eff, b, p, beta)),
             ("K2", k2k, k2p,
-             lambda: dia_cg.kernel_k2(xs, rs, pn, Ap, a),
+             lambda: dia_cg.kernel_k2(offsets, x, b, pn, Ap, a),
              lambda: dia_cg.k2_reference(x, b, pn, Ap, a))):
         err = max(rel_max(u, v) for u, v in zip(outk, outp))
         bitwise = all(torch.equal(u, v) for u, v in zip(outk, outp))
         call_k, ms_p = per_call_ms(fk), per_call_ms(fp)
         print(f"{name} m={m} bitwise {bitwise} max rel diff {err:.3e} "
-              f"(bound 1e-6); kernel {call_k:.4f} ms per call, plain "
-              f"{ms_p:.4f} ms per call (median of 3 runs of 50)",
-              flush=True)
-        check(err <= 1e-6, name)
+              f"(bound 1e-6); wrapper call {call_k:.4f} ms (with its copies "
+              f"into the workspace), plain {ms_p:.4f} ms per call (median "
+              "of 3 runs of 50)", flush=True)
+        check(bitwise and err <= 1e-6, name)
         # bytes a row: K1 reads 7 diagonals, r and p and writes p' and
         # Ap; K2 reads x, p', r and Ap and writes x and r (f32)
         row_bytes = {"K1": 44, "K2": 24}[name]
@@ -526,34 +541,50 @@ def phase_dia_cg(dev, offsets, data) -> tuple:
     rk = residual_ratio(offsets, eff, b, xk)
     rp = residual_ratio(offsets, eff, b, xp)
     dx = float(torch.linalg.norm(xk - xp) / torch.linalg.norm(xp))
-    print(f"solve m={m} tol {tol:g} its kernel {ik} plain {ip} (bound "
-          f"max(3, 2%)), |b-Sx|/|b| kernel {rk:.3e} plain {rp:.3e} (bound "
+    print(f"solve m={m} tol {tol:g} its kernel {ik} plain {ip} (equal), "
+          f"|b-Sx|/|b| kernel {rk:.3e} plain {rp:.3e} (bound "
           f"{1.5 * tol:g}), |x-xp|/|xp| {dx:.3e}, bitwise "
           f"{torch.equal(xk, xp)}; kernel {ms_k:.3f} ms, plain {ms_p:.3f} "
           "ms (median of 3)", flush=True)
-    check(ik > 0 and abs(ik - ip) <= max(3, 0.02 * ip), "solve iterations")
+    check(ik > 0 and ik == ip and torch.equal(xk, xp), "solve bitwise")
     check(rk <= 1.5 * tol and rp <= 1.5 * tol, "solve residual")
 
     # time per iteration over a fixed 2,000 iterations, on the scaled
     # Laplacian (the deep-contact system reaches f32 underflow sooner)
     its = 2000
     effl, bl = dia_cg_system(dev, offsets, data, m, SEED, m2d_scale=0.0)
-    ms_k, (_, ik) = timed(lambda: dia_cg.solve(
+    replays = dia_cg.solve.replays
+    ms_k, (xk, ik) = timed(lambda: dia_cg.solve(
         offsets, effl, bl, 1e-30, its, stall_guard=0.0))
-    ms_p, (_, ip) = timed(lambda: dia_cg.fused_dia_cg_reference(
-        offsets, effl, bl, 1e-30, its, stall_guard=0.0))
-    print(f"per iteration m={m}: kernel {ms_k / ik:.4f} ms ({ik} its), "
-          f"plain {ms_p / ip:.4f} ms ({ip} its) (median of 3)", flush=True)
-    check(ik == ip == its, "2,000 iterations")
-    # device time per launch of each kernel of the chunk, in the solve
-    names = ["k_k1", "k_alpha", "k_k2", "k_end", "k_flush"]
+    replays = (dia_cg.solve.replays - replays) // 3
+    ms_p, (xp, ip) = timed(lambda: dia_cg.fused_dia_cg_reference(
+        offsets, effl, bl, 1e-30, its, stall_guard=0.0), reps=1)
+    print(f"per iteration m={m}: kernel {ms_k / ik:.4f} ms ({ik} its, "
+          f"median of 3; {replays} graph replays a solve), plain "
+          f"{ms_p / ip:.4f} ms ({ip} its, one run), bitwise "
+          f"{torch.equal(xk, xp)}", flush=True)
+    check(ik == ip == its and torch.equal(xk, xp), "2,000 iterations")
+    check(replays == -(-its // 64), "one graph replay per chunk")
+    # the kernels of a solve as the profiler sees them, and device time
+    # per launch of the two of an iteration
+    _, wall, busy, by_kernel = busy_profile(lambda: dia_cg.solve(
+        offsets, effl, bl, 1e-30, 256, stall_guard=0.0))
+    print_breakdown(f"profile m={m} 256 iterations", wall, busy, by_kernel)
+    ours = sorted({k.replace("(anonymous namespace)::", "").split("<")[0]
+                   .split()[-1] for k in by_kernel if "anonymous" in k})
+    print(f"kernels of the solve: {ours}")
+    check(ours == ["k_k1", "k_k2", "k_prime"],
+          "an iteration is K1 and K2 (and one priming launch a solve)")
+    names = ["k_k1", "k_k2"]
     dev_ms = device_ms(lambda: dia_cg.solve(
         offsets, effl, bl, 1e-30, 256, stall_guard=0.0), names, calls=4)
-    busy = sum(dev_ms[k] for k in names[:4])
+    busy = sum(dev_ms.values())
     print("device ms per launch in the solve: " + ", ".join(
         f"{k} {v:.4f}" for k, v in dev_ms.items()) + f"; one iteration's "
         f"kernels {busy:.4f} ms of {ms_k / ik:.4f} ms (busy share "
-        f"{busy / (ms_k / ik):.3f})", flush=True)
+        f"{busy / (ms_k / ik):.3f}); bounds K1 "
+        f"{timings[0]['bound_ms']:.4f} ms, K2 {timings[1]['bound_ms']:.4f} "
+        "ms", flush=True)
     timings[0]["ms"], timings[1]["ms"] = dev_ms["k_k1"], dev_ms["k_k2"]
     del effl
 
@@ -561,10 +592,27 @@ def phase_dia_cg(dev, offsets, data) -> tuple:
     offs2, data2 = p1_operator(dev, 256, 256)
     eff2, b2 = dia_cg_system(dev, offs2, data2, 257, SEED + 3)
     x64, i64 = dia_cg.solve(offs2, eff2, b2, tol, maxiter, chunk=64)
+    x5, i5 = dia_cg.solve(offs2, eff2, b2, tol, maxiter, chunk=5)
     x1, i1 = dia_cg.solve(offs2, eff2, b2, tol, maxiter, chunk=1)
-    print(f"chunk 64/1  m=257 its {i64}/{i1} bitwise equal "
-          f"{bool(torch.equal(x64, x1))}")
-    check(i64 == i1 > 0 and torch.equal(x64, x1), "chunk invariance")
+    print(f"chunk 64/5/1 m=257 its {i64}/{i5}/{i1} bitwise equal "
+          f"{bool(torch.equal(x64, x5) and torch.equal(x64, x1))}")
+    check(i64 == i5 == i1 > 0 and torch.equal(x64, x5)
+          and torch.equal(x64, x1), "chunk invariance")
+    # two solves with other matrices and right-hand sides in one
+    # workspace and its graphs, against the same solves in fresh ones
+    eff3, b3 = dia_cg_system(dev, offs2, data2, 257, SEED + 5,
+                             m2d_scale=0.5)
+    xr, ir = dia_cg.solve(offs2, eff3, b3, tol, maxiter)
+    fresh = []
+    for e_, b_ in ((eff2, b2), (eff3, b3)):
+        dia_cg.release_workspaces()
+        fresh.append(dia_cg.solve(offs2, e_, b_, tol, maxiter))
+    same = (fresh[0][1] == i64 and torch.equal(fresh[0][0], x64)
+            and fresh[1][1] == ir and torch.equal(fresh[1][0], xr))
+    print(f"reuse       m=257 its {i64}, {ir} / fresh {fresh[0][1]}, "
+          f"{fresh[1][1]} bitwise equal to fresh workspaces {same}",
+          flush=True)
+    check(same and ir > 0, "workspace reuse")
     x0, i0 = dia_cg.solve(offsets, eff, torch.zeros_like(b), tol, maxiter)
     print(f"b = 0       m={m} its {i0} max|x| {float(x0.abs().max())}")
     check(i0 == 0 and float(x0.abs().max()) == 0.0, "zero rhs")
@@ -572,7 +620,7 @@ def phase_dia_cg(dev, offsets, data) -> tuple:
                          chunk=3)
     print(f"maxiter 7   m={m} its {i7}", flush=True)
     check(i7 == 7, "maxiter")
-    del eff, eff2
+    del eff, eff2, eff3
     return timings[0], timings[1]
 
 
@@ -581,25 +629,29 @@ def reset_counters():
     mgfused.solve.launches = 0
     dia_spmv.dia_spmv.launches = 0
     dia_cg.solve.launches = 0
+    dia_cg.solve.replays = 0
 
 
 def read_counters() -> dict:
     from proximalgalerkin_torch.ops import dia_cg, dia_spmv, mgfused
     return {"fused_mg_pcg": mgfused.solve.launches,
             "dia_spmv": dia_spmv.dia_spmv.launches,
-            "dia_cg": dia_cg.solve.launches}
+            "dia_cg": dia_cg.solve.launches,
+            "dia_cg_replays": dia_cg.solve.replays}
 
 
 class InnerTimer:
-    """Inside the with block, every mgfused.solve call of the P1 solver
-    is timed (synchronised before and after) and its iterations summed."""
+    """Inside the with block, every solve call of the P1 solver's inner
+    kernel module (`name`: mgfused or dia_cg) is timed (synchronised
+    before and after) and its iterations summed."""
 
-    def __init__(self):
+    def __init__(self, name: str):
+        self.name = name
         self.ms, self.its, self.calls = 0.0, 0, 0
 
     def __enter__(self):
         from proximalgalerkin_torch.models import obstacle_p1
-        real, timer = obstacle_p1.mgfused, self
+        real, timer = getattr(obstacle_p1, self.name), self
 
         class Shim:
             @staticmethod
@@ -614,11 +666,11 @@ class InnerTimer:
                 return x, its
 
         self._module, self._real = obstacle_p1, real
-        obstacle_p1.mgfused = Shim
+        setattr(obstacle_p1, self.name, Shim)
         return self
 
     def __exit__(self, *exc):
-        self._module.mgfused = self._real
+        setattr(self._module, self.name, self._real)
 
 
 def drive_main(dev, pc: str, n: int = 1024, inner=None):
@@ -661,7 +713,8 @@ def drive_main(dev, pc: str, n: int = 1024, inner=None):
           f"{elapsed:.2f} s outer {res.outer_iterations} newton "
           f"{res.newton_its} cg {res.cg_its_total} feasibility {feas:.3e} "
           f"launches {counts}")
-    print(f"newton_per_outer {res.newton_per_outer}", flush=True)
+    print(f"newton_per_outer {res.newton_per_outer}; SHA-256 of u "
+          f"{hashlib.sha256(res.u.tobytes()).hexdigest()[:16]}", flush=True)
     check(res.converged, f"{n}^2 converged")
     check(res.u.shape == (solver.N,) and bool(np.isfinite(res.u).all()),
           "u finite, of shape (N,)")
@@ -673,11 +726,13 @@ def drive_main(dev, pc: str, n: int = 1024, inner=None):
 # the first MG-PCG kernel's numbers as PERF.md records them (one H100
 # 80GB HBM3 at 700 W): ms per CG iteration, idle share over outer step 1
 FIRST_KERNEL_MS_PER_IT, FIRST_KERNEL_IDLE_OUTER1 = 0.1884, 0.35
+# and this port's first DIA-CG (four launches an iteration), likewise
+FIRST_DIA_CG_MS_PER_IT, FIRST_DIA_CG_IDLE_OUTER1 = 0.0519, 0.20
 
 
 def phase_main_mg(dev, n: int = 1024):
     print("== phase 6: main path, mixed + mg", flush=True)
-    inner = InnerTimer()
+    inner = InnerTimer("mgfused")
     solver, res, counts = drive_main(dev, "mg", n, inner)
     check(counts["fused_mg_pcg"] > 0, "MG-PCG kernel launched")
     check(inner.its == res.cg_its_total, "every CG iteration timed")
@@ -699,12 +754,28 @@ def phase_main_jacobi(dev, u_mg, n: int = 1024):
     print("== phase 7: main path, mixed + jacobi", flush=True)
     from proximalgalerkin_torch.mesh import rectangle_mesh
     from proximalgalerkin_torch.models.obstacle_p1 import P1ObstacleSolver
-    _, res, counts = drive_main(dev, "jacobi", n)
+    inner = InnerTimer("dia_cg")
+    solver, res, counts = drive_main(dev, "jacobi", n, inner)
+    replays = counts["dia_cg_replays"]
     rel = float(np.linalg.norm(res.u - u_mg) / np.linalg.norm(u_mg))
     print(f"{n}^2 |u_jacobi - u_mg|/|u_mg| {rel:.3e} (bound 1e-6)",
           flush=True)
     check(counts["dia_cg"] > 0, "DIA-CG kernels launched")
     check(rel <= 1e-6, "jacobi and mg solutions agree")
+    check(inner.its == res.cg_its_total, "every CG iteration timed")
+    check(replays * 64 == counts["dia_cg"], "one graph replay per chunk")
+    print(f"{n}^2 jacobi inner solves: {inner.calls} solves, {replays} "
+          f"graph replays, {inner.ms:.1f} ms of the solve, "
+          f"{inner.ms / inner.its:.4f} ms per CG iteration (bounds of K1 "
+          f"and K2 together {68 * (n + 1) ** 2 / PEAK_BYTES_PER_S * 1e3:.4f}"
+          f" ms; this port's first DIA-CG {FIRST_DIA_CG_MS_PER_IT} ms, "
+          "recorded)", flush=True)
+    res1, wall, busy, by_kernel = busy_profile(
+        lambda: solver.solve(max_outer=1))
+    print_breakdown(f"{n}^2 jacobi outer step 1 ({res1.newton_its} Newton, "
+                    f"{res1.cg_its_total} CG)", wall, busy, by_kernel)
+    print(f"(this port's first DIA-CG: idle share {FIRST_DIA_CG_IDLE_OUTER1} "
+          "over outer step 1, recorded)", flush=True)
 
     mesh = rectangle_mesh(32, 32, p0=(-1.0, -1.0), p1=(1.0, 1.0))
     s = P1ObstacleSolver(mesh, device=dev, alpha_cap=1e2, outer_tol=1e-8,
@@ -720,58 +791,84 @@ def phase_main_jacobi(dev, u_mg, n: int = 1024):
     return counts
 
 
-def ab_child():
-    """One 1024^2 mixed + mg solve of the package in the working
-    directory (after a warm-up solve); prints one JSON line."""
+def ab_child(pc: str, out: str):
+    """One 1024^2 mixed solve with `pc` of the package in the working
+    directory (after a warm-up solve); saves u to `out` and prints one
+    JSON line."""
     import os
     sys.path.insert(0, os.getcwd())
     from proximalgalerkin_torch.mesh import rectangle_mesh
     from proximalgalerkin_torch.models.obstacle_p1 import P1ObstacleSolver
-    from proximalgalerkin_torch.ops import mgfused
+    from proximalgalerkin_torch.ops import dia_spmv, mgfused
     mgfused.build()
+    dia_spmv.build()
     dev = torch.device("cuda", 0)
     mesh = rectangle_mesh(1024, 1024, p0=(-1.0, -1.0), p1=(1.0, 1.0))
     solver = P1ObstacleSolver(mesh, device=dev, alpha_cap=1e2,
-                              outer_tol=1e-8, mixed_precision=True, pc="mg")
+                              outer_tol=1e-8, mixed_precision=True, pc=pc)
     solver.solve()
-    inner = InnerTimer()
+    inner = InnerTimer("mgfused" if pc == "mg" else "dia_cg")
     t0 = time.perf_counter()
     with inner:
         res = solver.solve()
         torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     _, wall, busy, _ = busy_profile(lambda: solver.solve(max_outer=1))
-    import hashlib
+    np.save(out, res.u)
     print(json.dumps({
-        "package": mgfused.__file__, "solve_s": elapsed,
+        "package": mgfused.__file__, "pc": pc, "solve_s": elapsed,
         "u_sha256": hashlib.sha256(res.u.tobytes()).hexdigest()[:16],
         "inner_ms": inner.ms, "cg": res.cg_its_total,
         "ms_per_cg_iteration": inner.ms / inner.its,
         "outer": res.outer_iterations, "newton": res.newton_its,
         "newton_per_outer": res.newton_per_outer,
+        "feasibility": float((res.u - solver.phi.cpu().numpy()).min()),
         "idle_share_outer1": 1 - busy / wall}))
 
 
 def ab(parent: str):
-    """parent, this, this, parent: the 1024^2 mg solve of each, each in
-    its own process, on this card."""
+    """parent, this, this, parent: the 1024^2 mg solve of each, then the
+    jacobi solve of each, every one in its own process, on this card. The
+    counts and the bits of u must not depend on the package, and the
+    jacobi solution must agree with the mg one."""
     import os
+    import tempfile
     phase_card()
     here = os.path.dirname(os.path.abspath(__file__))
-    for label, root in (("parent", parent), ("this", here), ("this", here),
-                        ("parent", parent)):
-        out = subprocess.run(
-            [sys.executable, os.path.join(here, "chip_smoke.py"),
-             "--ab-child"], cwd=os.path.abspath(root), capture_output=True,
-            text=True, timeout=900)
-        check(out.returncode == 0, f"A/B run in {root}:\n{out.stderr}")
-        print(f"A/B {label}: {out.stdout.strip().splitlines()[-1]}",
-              flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "u.npy")
+        u_mg = None
+        for pc in ("mg", "jacobi"):
+            runs = []
+            for label, root in (("parent", parent), ("this", here),
+                                ("this", here), ("parent", parent)):
+                proc = subprocess.run(
+                    [sys.executable, os.path.join(here, "chip_smoke.py"),
+                     "--ab-child", pc, out], cwd=os.path.abspath(root),
+                    capture_output=True, text=True, timeout=900)
+                check(proc.returncode == 0,
+                      f"A/B run in {root}:\n{proc.stderr}")
+                line = proc.stdout.strip().splitlines()[-1]
+                print(f"A/B {pc} {label}: {line}", flush=True)
+                runs.append(json.loads(line))
+            u = np.load(out)
+            if pc == "mg":
+                u_mg = u
+            rel = float(np.linalg.norm(u - u_mg) / np.linalg.norm(u_mg))
+            same = all(r[k] == runs[0][k] for r in runs
+                       for k in ("cg", "newton_per_outer", "u_sha256"))
+            print(f"A/B {pc}: counts and u bitwise equal in all four {same}; "
+                  f"min feasibility {min(r['feasibility'] for r in runs):.3e}"
+                  f" (bound -1e-10); |u - u_mg|/|u_mg| {rel:.3e} (bound "
+                  "1e-6)", flush=True)
+            check(same, f"A/B {pc}: counts and bits of u")
+            check(all(r["feasibility"] >= -1e-10 for r in runs)
+                  and rel <= 1e-6, f"A/B {pc}: feasibility and solution")
 
 
 def main():
     if sys.argv[1:2] == ["--ab-child"]:
-        return ab_child()
+        return ab_child(*sys.argv[2:4])
     if sys.argv[1:2] == ["--ab"]:
         return ab(sys.argv[2])
     phase_card()

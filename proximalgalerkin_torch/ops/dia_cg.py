@@ -18,13 +18,37 @@ it < maxiter and rr > stop, stop = tol^2 |b|^2, stalled = no improvement
 for stall_window iterations with the best r.r below stall_guard * stop.
 A zero b returns x = 0 after 0 iterations.
 
-The reference builds its kernels only when the operator's offsets fit
-inside one 512-row TPU block (make_fused_dia_cg returns None otherwise);
-the CUDA kernels read neighbours through the cache with explicit bounds
-and take any offsets.
+On the card an iteration is two launches, K1 and K2; each ends its dot
+product in its own last block, which also does the iteration's scalar
+work (csrc/dia.cu says what bounds them and what the design does about
+it). K1's blocks are as many as the card holds at once; each works
+through bands of four 256-row runs and keeps the asynchronous copies of
+its next band in flight, into a ring of shared-memory stages, while it
+computes one. A stage holds the band's matrix rows and, for each
+cluster of neighbouring offsets (stage_plan), r and p over the band
+shifted by the cluster; p' is computed there once and read from there by
+every diagonal of the cluster. Offsets outside every cluster are read
+through the cache with explicit bounds, so any offsets work (the
+reference builds its kernels only when they fit inside one 512-row TPU
+block). The best iterate is never copied: x lives in three buffers, and
+K2 writes into the one that holds neither the current nor the best.
 
-The solve runs in chunks of `chunk` iterations, each masked by the loop
-condition computed on the device; the host reads it once per chunk.
+A solve runs in chunks of `chunk` iterations, each masked by the loop
+condition computed on the device. A chunk is one CUDA graph, captured at
+first use and replayed: one host call and one host read per chunk. The
+graphs belong to a workspace, one per (device, n, offsets, dtype), that
+holds everything a captured kernel sees at fixed addresses: the vectors,
+the partial sums, the device state vector (with tol, maxiter, the stall
+window and guard) and a copy of the matrix. The matrix is copied in at
+every solve (it changes with every Newton step; 29 MB at 1024^2, some
+tens of microseconds on the card) rather than read through a pointer in
+device memory, because the copy is also where its rows get a pitch that
+is a multiple of 16 bytes: a (ndiag, N) array with odd N cannot be read
+with 16-byte copies. The p buffer of an iteration is picked on the device
+by the parity of the iteration count, so one graph per (chunk, first)
+serves every chunk of every solve. A workspace is not reentrant: one
+solve at a time, on one stream.
+
 Every dot product is summed in the kernel's fixed order (ordered_sum),
 so kernel and plain version agree bit for bit.
 
@@ -34,23 +58,37 @@ so kernel and plain version agree bit for bit.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import ctypes
+from typing import Dict, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ._nvcc import require_cuda, stream_of
 from .dia_spmv import (check_dtype, check_operator, check_vector,
-                       dia_spmv_reference, lib, offsets_arg, raise_on,
-                       suffix)
+                       dia_spmv_reference, lib, offsets_arg)
 
 STALL_WINDOW = 128
 STALL_GUARD = 1e4
 
-# slots of the kernel's device state vector (csrc/dia.cu SC_*)
-_SC_IT, _SC_LIVE, _SC_LEN = 0, 6, 16
-_TPB = 256           # threads per block of the grid kernels
-_RED_TPB = 1024      # threads of the single-block reductions
+# slots of the kernel's device state vector (csrc/dia.cu SC_*): the
+# solve's state, then its parameters from _SC_TOL on
+_SC = dict(IT=0, RR=1, LIVE=6, A=7, BETA=9, BEST=11)
+_SC_TOL, _SC_LEN = 16, 32
+_TPB = 256           # rows of one partial sum (a run)
+_RED_TPB = 1024      # strided lanes of the sum over the partials
+_ROWS = 4            # rows of one 16-byte copy of f32
+_PAD = 64            # buffers are padded to this many values
+_NVEC = 7            # vectors of a workspace (csrc/dia.cu NVEC)
+_CLUSTER_GAP = 32    # offsets this close share a staged segment
+_MAX_CLUSTERS = 8    # csrc/dia.cu MAX_CLUSTERS
+# Dynamic shared memory a K1 block may use: Hopper's 227 KB a block, less
+# 1 KB for the kernel's static shared memory. stage_plan alone divides it;
+# the kernel library takes the plan as given and the card refuses a launch
+# that asks for more.
+_K1_SMEM = 226 * 1024
+# K1's band in runs and the stages of its ring, in order of preference
+_RINGS = ((4, 2), (1, 2), (1, 1))
 
 
 def _check_inputs(offsets, data, b) -> Tuple[int, ...]:
@@ -164,36 +202,258 @@ def fused_dia_cg_reference(offsets: Sequence[int], data: torch.Tensor,
     return xb, int(it)
 
 
+# ------------------------------------------- the kernel's host geometry
+
+def _padded(k: int) -> int:
+    return -(-k // _PAD) * _PAD
+
+
+def cluster_offsets(offsets: Sequence[int]):
+    """Groups of two or more offsets in which neighbours lie at most
+    _CLUSTER_GAP apart. Returns (clusters, member): clusters as (lo, hi) in
+    ascending order, and for each diagonal, in the order given, the index
+    of its cluster or -1."""
+    order = sorted(range(len(offsets)), key=lambda d: offsets[d])
+    groups, cur = [], []
+    for d in order:
+        if cur and offsets[d] - offsets[cur[-1]] > _CLUSTER_GAP:
+            groups.append(cur)
+            cur = []
+        cur.append(d)
+    if cur:
+        groups.append(cur)
+    clusters, member = [], [-1] * len(offsets)
+    for g in groups:
+        if len(g) < 2:
+            continue
+        for d in g:
+            member[d] = len(clusters)
+        clusters.append((offsets[g[0]], offsets[g[-1]]))
+    return tuple(clusters), tuple(member)
+
+
+class StagePlan(NamedTuple):
+    """K1's staging plan (csrc/dia.cu Plan). K1 works through bands of
+    `runs` runs of 256 rows, staged in a ring of `stages` stages. Diagonal d reads p' from staged segment
+    member[d], or r and p through the cache when member[d] is -1.
+    Segment c holds rows [s0 + start[c], s0 + start[c] + length[c]) of a
+    band starting at row s0, clipped to the matrix."""
+    runs: int
+    stages: int
+    member: Tuple[int, ...]
+    start: Tuple[int, ...]
+    length: Tuple[int, ...]
+
+
+def stage_values(nd: int, runs: int, rows: int) -> int:
+    """Values in one stage of K1's shared-memory ring (the layout of
+    csrc/dia.cu stage_values): the nd matrix rows of a band of `runs`
+    runs, and r and p over the `rows` staged rows of its segments."""
+    return nd * runs * _TPB + 2 * rows
+
+
+def k1_smem_bytes(nd: int, plan: StagePlan, itemsize: int) -> int:
+    """Dynamic shared memory of a K1 block under `plan`: one value a
+    thread and run for the run sums, then the ring."""
+    stage = stage_values(nd, plan.runs, sum(plan.length))
+    return (plan.runs * _TPB + plan.stages * stage) * itemsize
+
+
+def stage_plan(offsets: Sequence[int], itemsize: int) -> StagePlan:
+    """The clusters of `offsets` laid out for K1, within _K1_SMEM. The
+    band and the ring are the first of _RINGS whose matrix rows alone
+    fit: four runs in two stages, else one run in two stages, else one
+    run in one stage. Each segment starts on a multiple of four rows at or
+    below its cluster's lowest offset and covers the band shifted by
+    every offset of the cluster. Clusters are taken in order of their
+    number of diagonals; one that would make a stage too large (or is
+    one too many) is left out: its diagonals read through the cache."""
+    nd = len(offsets)
+    for runs, stages in _RINGS:
+        # values one stage may hold
+        budget = (_K1_SMEM // itemsize - runs * _TPB) // stages
+        if stage_values(nd, runs, 0) <= budget:
+            break
+    else:
+        raise ValueError(f"{nd} diagonals do not fit K1's shared memory")
+    clusters, member = cluster_offsets(offsets)
+    start, length, kept = [], [], {}
+    for c in sorted(range(len(clusters)), key=lambda c: -member.count(c)):
+        lo, hi = clusters[c]
+        s = lo // _ROWS * _ROWS
+        ln = -(-(runs * _TPB + hi - s) // _ROWS) * _ROWS
+        values = stage_values(nd, runs, sum(length) + ln)
+        if len(start) == _MAX_CLUSTERS or values > budget:
+            continue
+        kept[c] = len(start)
+        start.append(s)
+        length.append(ln)
+    return StagePlan(runs, stages, tuple(kept.get(c, -1) for c in member),
+                     tuple(start), tuple(length))
+
+
 # ------------------------------------------------------------- kernel
+
+def _raise_on(err: int, what: str, lib_):
+    if err != 0:
+        msg = lib_.dia_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def _graph_key(chunk: int, first: bool) -> Tuple[int, bool]:
+    """A chunk's graph depends on its length and on whether it primes."""
+    return int(chunk), bool(first)
+
+
+class _Workspace:
+    """The kernels' device buffers for one (n, offsets, dtype), and the
+    chunk graphs captured over them (one per _graph_key). Every pointer a
+    captured kernel sees stays fixed, so a graph serves every solve.
+
+    One buffer holds the seven vectors (three x buffers, r, p0, p1, Ap,
+    each padded to a multiple of _PAD values), the matrix with padded
+    rows (data: (ndiag, pitch)), the partial sums and the state vector.
+    K2 writes x + a p' into the x buffer that holds neither the current
+    nor the best iterate; sc says which buffer holds which."""
+
+    def __init__(self, lib_, n: int, offs: Tuple[int, ...], dtype, dev):
+        item = torch.empty((), dtype=dtype).element_size()
+        self.lib, self.n, self.offs = lib_, n, offs
+        self.plan = plan = stage_plan(offs, item)
+        nd, npad, nb = len(offs), _padded(n), -(-n // _TPB)
+        self.pitch = pitch = npad
+        self.buf = torch.zeros(_NVEC * npad + nd * pitch + _padded(nb)
+                               + _SC_LEN,
+                               dtype=dtype, device=dev)
+        self.cnt = torch.zeros(1, dtype=torch.int32, device=dev)
+        vec = self.buf[:_NVEC * npad].view(_NVEC, npad)
+        self.xs = vec[:3, :n]
+        self.r, self.p0, self.p1, self.Ap = (v[:n] for v in vec[3:])
+        o = _NVEC * npad
+        self.data_padded = self.buf[o:o + nd * pitch].view(nd, pitch)
+        self.data = self.data_padded[:, :n]
+        o += nd * pitch
+        self.part = self.buf[o:o + nb]
+        o += _padded(nb)
+        self.sc = self.buf[o:o + _SC_LEN]
+        err = ctypes.c_int(0)
+        handle = lib_.dcg_ws_create(
+            int(item == 8), n, pitch, npad, nd, offsets_arg(offs),
+            offsets_arg(plan.member), len(plan.start),
+            offsets_arg(plan.start), offsets_arg(plan.length), plan.runs,
+            plan.stages, self.data_padded.data_ptr(), vec.data_ptr(),
+            self.part.data_ptr(), self.sc.data_ptr(), self.cnt.data_ptr(),
+            ctypes.byref(err))
+        _raise_on(err.value, "dcg_ws_create", lib_)
+        if not handle:
+            raise RuntimeError(f"dcg_ws_create failed for n={n}")
+        self.handle = handle
+        self.graphs: Dict[Tuple[int, bool], int] = {}
+        # the plan was sized for this layout of a stage; the kernel's must
+        # be the same
+        want, got = k1_smem_bytes(nd, plan, item), self.k1_shape()[1]
+        if got != want:
+            self.close()
+            raise RuntimeError(f"K1 takes {got} B of shared memory where "
+                               f"its plan counted {want} B")
+
+    def k1_shape(self) -> Tuple[int, int]:
+        """K1's launch on this card: (blocks, bytes of dynamic shared
+        memory a block)."""
+        out = [ctypes.c_int(0) for _ in range(2)]
+        self.lib.dcg_ws_info(self.handle, *(ctypes.byref(v) for v in out))
+        return tuple(v.value for v in out)
+
+    def load(self, data: torch.Tensor):
+        """Copies the matrix (ndiag, n) into its padded rows (on the
+        caller's stream)."""
+        self.data.copy_(data)
+
+    def set_state(self, **slots: float):
+        """Writes sc anew: zeros but for the slots named (by the keys of
+        _SC)."""
+        sc = torch.zeros(_SC_LEN, dtype=self.sc.dtype)
+        for name, v in slots.items():
+            sc[_SC[name]] = v
+        self.sc.copy_(sc)
+
+    def set_params(self, tol: float, maxiter: int, window: float,
+                   guard: float):
+        """tol, maxiter, the stall window and guard into sc."""
+        self.sc[_SC_TOL:_SC_TOL + 4] = torch.tensor(
+            [tol, float(maxiter), float(window), guard], dtype=self.sc.dtype)
+
+    def graph(self, chunk: int, first: bool) -> int:
+        """The instantiated graph of a chunk, captured at first use."""
+        key = _graph_key(chunk, first)
+        if key not in self.graphs:
+            err = ctypes.c_int(0)
+            g = self.lib.dcg_capture(self.handle, key[0], int(key[1]),
+                                     ctypes.byref(err))
+            _raise_on(err.value, "dcg_capture", self.lib)
+            if not g:
+                raise RuntimeError("dcg_capture returned no graph")
+            self.graphs[key] = g
+        return self.graphs[key]
+
+    def launch(self, chunk: int, first: bool, stream: int):
+        _raise_on(self.lib.dcg_launch(self.graph(chunk, first), stream),
+                  "dcg_launch", self.lib)
+
+    def close(self):
+        """Destroys the graphs and the workspace (after the device is done
+        with them)."""
+        for g in self.graphs.values():
+            self.lib.dcg_graph_destroy(g)
+        self.graphs.clear()
+        if self.handle:
+            self.lib.dcg_ws_destroy(self.handle)
+            self.handle = None
+
+
+_workspaces: Dict[tuple, _Workspace] = {}
+
+
+def release_workspaces():
+    """Frees every cached workspace and its graphs; the next solve builds
+    them anew."""
+    for dev in {key[0] for key in _workspaces}:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    for ws in _workspaces.values():
+        ws.close()
+    _workspaces.clear()
+
+
+def _workspace(offs: Tuple[int, ...], like: torch.Tensor) -> _Workspace:
+    """The workspace for vectors like `like` and these offsets, made at
+    first use and shared by every solve and kernel_k1 / kernel_k2 call
+    there (not reentrant: one at a time)."""
+    key = (like.device, int(like.shape[0]), offs, like.dtype)
+    if key not in _workspaces:
+        _workspaces[key] = _Workspace(lib(), key[1], offs, like.dtype,
+                                      like.device)
+    return _workspaces[key]
+
 
 def _kernel_solve(offs, data, b, tol, maxiter, stall_guard, stall_window,
                   chunk):
-    n, dev = int(b.shape[0]), b.device
-    x = torch.zeros_like(b)
-    r = b.clone()
-    p0 = torch.zeros_like(b)
-    p1 = torch.zeros_like(b)
-    Ap = torch.empty_like(b)
-    xb = torch.zeros_like(b)
-    part = torch.empty(-(-n // _TPB), dtype=b.dtype, device=dev)
-    sc = torch.zeros(_SC_LEN, dtype=b.dtype, device=dev)
-    fn = getattr(lib(), f"dcg_chunk_{suffix(b)}")
-    c_offs = offsets_arg(offs)
+    ws = _workspace(offs, b)
+    ws.load(data)
+    ws.r.copy_(b)
+    ws.set_params(tol, maxiter, stall_window, stall_guard)
     stream = stream_of(b)
-    queued = 0
+    first = True
     while True:
-        err = fn(data.data_ptr(), c_offs, len(offs), x.data_ptr(),
-                 r.data_ptr(), p0.data_ptr(), p1.data_ptr(), Ap.data_ptr(),
-                 xb.data_ptr(), part.data_ptr(), sc.data_ptr(), n, chunk,
-                 int(queued == 0), queued % 2, float(tol), float(maxiter),
-                 float(stall_window), float(stall_guard), stream)
-        raise_on(err, "dcg_chunk")
+        ws.launch(chunk, first, stream)
         solve.launches += chunk
-        queued += chunk
+        solve.replays += 1
+        first = False
         # the one host read of the chunk: iterations and the loop condition
-        it, live = sc[[_SC_IT, _SC_LIVE]].tolist()
+        # and the x buffer of the best iterate
+        it, live, best = ws.sc[[_SC["IT"], _SC["LIVE"], _SC["BEST"]]].tolist()
         if live < 0.5:
-            return xb, int(it)
+            return ws.xs[int(best)].clone(), int(it)
 
 
 def solve(offsets: Sequence[int], data_eff: torch.Tensor, b: torch.Tensor,
@@ -201,9 +461,12 @@ def solve(offsets: Sequence[int], data_eff: torch.Tensor, b: torch.Tensor,
           stall_window: int = STALL_WINDOW, chunk: int = 64):
     """Fused DIA-CG solve of A x = b for the DIA operator (offsets,
     data_eff (ndiags, N)), f32 or f64; returns (x, iterations). CPU
-    tensors take the plain version; CUDA tensors launch the kernels
-    (solve.launches counts the iterations queued on the card, each one
-    launch of K1 and one of K2)."""
+    tensors take the plain version; CUDA tensors launch the kernels:
+    solve.launches counts the iterations queued on the card, each one
+    launch of K1 and one of K2, and solve.replays the chunk graphs
+    replayed, each one host call and one host read. On the card, solves
+    of one operator shape share a workspace: not reentrant across streams
+    or threads."""
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     if b.device.type == "cpu":
@@ -216,36 +479,41 @@ def solve(offsets: Sequence[int], data_eff: torch.Tensor, b: torch.Tensor,
 
 
 solve.launches = 0
+solve.replays = 0
 
 
 # --------------------------------------- kernel pieces, for comparison
 
 def kernel_k1(offsets, data, r, p, beta: float):
-    """The kernel's K1, launched once: (p', Ap, partials of p'.Ap)."""
+    """The solve's K1, launched once on its workspace with the given r,
+    p and beta: (p', Ap, partials of p'.Ap)."""
     require_cuda(r, p)
     offs = _check_inputs(offsets, data, r)
-    n = int(r.shape[0])
-    check_vector("p", p, n, r.device, r.dtype)
-    pn, Ap = torch.empty_like(r), torch.empty_like(r)
-    part = torch.empty(-(-n // _TPB), dtype=r.dtype, device=r.device)
-    c_offs = offsets_arg(offs)
-    raise_on(getattr(lib(), f"dcg_k1_{suffix(r)}")(
-        data.data_ptr(), c_offs, len(offs), r.data_ptr(), p.data_ptr(),
-        pn.data_ptr(), Ap.data_ptr(), part.data_ptr(), float(beta), n,
-        stream_of(r)), "dcg_k1")
-    return pn, Ap, part
+    check_vector("p", p, int(r.shape[0]), r.device, r.dtype)
+    ws = _workspace(offs, r)
+    ws.load(data)
+    ws.r.copy_(r)
+    ws.p0.copy_(p)
+    ws.cnt.zero_()
+    ws.set_state(LIVE=1.0, BETA=beta, RR=1.0)   # iteration 0: p0 -> p1
+    _raise_on(ws.lib.dcg_k1(ws.handle, stream_of(r)), "dcg_k1", ws.lib)
+    return ws.p1.clone(), ws.Ap.clone(), ws.part.clone()
 
 
-def kernel_k2(x, r, p, Ap, a: float):
-    """The kernel's K2, launched once: x += a p and r -= a Ap in place, as
-    in the solve; returns (x, r, partials of r.r)."""
+def kernel_k2(offsets, x, r, p, Ap, a: float):
+    """The solve's K2, launched once on the workspace of these offsets
+    (K2 reads no matrix) with the given x, r, p', Ap and a: (x + a p',
+    r - a Ap, partials of r.r). The arguments are left as they are."""
     require_cuda(x, r, p, Ap)
     check_dtype(x)
     n = int(x.shape[0])
     for name, t in (("x", x), ("r", r), ("p", p), ("Ap", Ap)):
         check_vector(name, t, n, x.device, x.dtype)
-    part = torch.empty(-(-n // _TPB), dtype=x.dtype, device=x.device)
-    raise_on(getattr(lib(), f"dcg_k2_{suffix(x)}")(
-        x.data_ptr(), r.data_ptr(), p.data_ptr(), Ap.data_ptr(),
-        part.data_ptr(), float(a), n, stream_of(x)), "dcg_k2")
-    return x, r, part
+    ws = _workspace(tuple(int(o) for o in offsets), x)
+    for dst, src in ((ws.xs[0], x), (ws.r, r), (ws.p1, p), (ws.Ap, Ap)):
+        dst.copy_(src)
+    ws.cnt.zero_()
+    # iteration 0: p' in p1; x in buffer 0 (current and best), x' into 1
+    ws.set_state(LIVE=1.0, A=a, RR=1.0)
+    _raise_on(ws.lib.dcg_k2(ws.handle, stream_of(x)), "dcg_k2", ws.lib)
+    return ws.xs[1].clone(), ws.r.clone(), ws.part.clone()

@@ -89,16 +89,22 @@ def lib() -> ctypes.CDLL:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         h.dia_error_string.restype = ctypes.c_char_p
         h.dia_error_string.argtypes = [I]
-        for suf, F in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
+        for suf in ("f32", "f64"):
             fn = getattr(h, f"dia_spmv_{suf}")
             fn.restype, fn.argtypes = I, [P, P, I, P, P, L, P]
-            fn = getattr(h, f"dcg_chunk_{suf}")
-            fn.restype = I
-            fn.argtypes = [P, P, I] + [P] * 8 + [L, I, I, I] + [F] * 4 + [P]
-            fn = getattr(h, f"dcg_k1_{suf}")
-            fn.restype, fn.argtypes = I, [P, P, I] + [P] * 5 + [F, L, P]
-            fn = getattr(h, f"dcg_k2_{suf}")
-            fn.restype, fn.argtypes = I, [P] * 5 + [F, L, P]
+        # the DIA-CG workspace and its chunk graphs (ops/dia_cg.py)
+        for name, res, args in (
+                ("dcg_ws_create", P,
+                 [I, L, L, L, I, P, P, I, P, P, I, I, P, P, P, P, P, P]),
+                ("dcg_ws_info", None, [P, P, P]),
+                ("dcg_ws_destroy", None, [P]),
+                ("dcg_capture", P, [P, I, I, P]),
+                ("dcg_launch", I, [P, P]),
+                ("dcg_graph_destroy", None, [P]),
+                ("dcg_k1", I, [P, P]),
+                ("dcg_k2", I, [P, P])):
+            fn = getattr(h, name)
+            fn.restype, fn.argtypes = res, args
         _lib_handle = h
     return _lib_handle
 

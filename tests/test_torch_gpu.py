@@ -154,33 +154,115 @@ def test_dia_spmv_matches_plain(cuda, m):
         assert _rel(y, dia_spmv_reference(offsets, d, xd)) <= bound
 
 
-@pytest.mark.parametrize("m", [12, 33, 257])
-def test_dia_cg_kernels_match_plain(cuda, m):
+# n = m^2 is never a multiple of the 256-row run or of K1's 1,024-row
+# band: 12 and 33 end inside the first or second band, 257 and 1025 have
+# a ragged last run; at 12 and 33 the whole stencil is one staged
+# segment, at 257 and 1025 three
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m", [12, 33, 257, 1025])
+def test_dia_cg_kernels_match_plain(cuda, m, dtype):
+    """K1, K2 and whole solves give the plain version's bits, for every
+    chunk size."""
     offsets, data = p1_operator(cuda, m - 1, m - 1)
     eff, b = dia_cg_system(cuda, offsets, data, m, 0)
+    eff, b = eff.to(dtype), b.to(dtype)
     rng = np.random.default_rng(m)
-    p = torch.as_tensor(rng.normal(size=m * m), dtype=torch.float32,
-                        device=cuda)
+    p = torch.as_tensor(rng.normal(size=m * m), dtype=dtype, device=cuda)
+    beta = torch.tensor(0.375, dtype=dtype, device=cuda)
+    a = torch.tensor(0.25, dtype=dtype, device=cuda)
     for u, v in zip(dia_cg.kernel_k1(offsets, eff, b, p, 0.375),
-                    dia_cg.k1_reference(offsets, eff, b, p, 0.375)):
-        assert _rel(u, v) <= 1e-6
-    for u, v in zip(dia_cg.kernel_k2(p.clone(), b.clone(), b, p, 0.25),
-                    dia_cg.k2_reference(p, b, b, p, 0.25)):
-        assert _rel(u, v) <= 1e-6
+                    dia_cg.k1_reference(offsets, eff, b, p, beta)):
+        assert torch.equal(u, v)
+    for u, v in zip(dia_cg.kernel_k2(offsets, p, b, b, p, 0.25),
+                    dia_cg.k2_reference(p, b, b, p, a)):
+        assert torch.equal(u, v)
+    # K1 and K2 ran on the one workspace the solves will use
+    assert sum(key[1:] == (m * m, tuple(offsets), dtype)
+               for key in dia_cg._workspaces) == 1
     tol = 1e-5
-    before = dia_cg.solve.launches
+    launches, replays = dia_cg.solve.launches, dia_cg.solve.replays
     xk, ik = dia_cg.solve(offsets, eff, b, tol, 2000)
-    assert dia_cg.solve.launches > before
+    assert dia_cg.solve.replays - replays == -(-max(ik, 1) // 64)
+    assert dia_cg.solve.launches - launches == 64 * -(-max(ik, 1) // 64)
     xp, ip = dia_cg.fused_dia_cg_reference(offsets, eff, b, tol, 2000)
-    assert ik > 0 and abs(ik - ip) <= max(3, 0.02 * ip)
+    assert ik == ip > 0 and torch.equal(xk, xp)
     assert residual_ratio(offsets, eff, b, xk) <= 1.5 * tol
-    x1, i1 = dia_cg.solve(offsets, eff, b, tol, 2000, chunk=1)
-    assert i1 == ik and torch.equal(x1, xk)
+    for chunk in (5, 1):
+        xc, ic = dia_cg.solve(offsets, eff, b, tol, 2000, chunk=chunk)
+        assert ic == ik and torch.equal(xc, xk)
     x0, i0 = dia_cg.solve(offsets, eff, torch.zeros_like(b), tol, 2000)
     assert i0 == 0 and float(x0.abs().max()) == 0.0
     _, i7 = dia_cg.solve(offsets, eff, b, 1e-30, 7, stall_guard=0.0,
                          chunk=3)
     assert i7 == 7
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m", [33, 257])
+def test_dia_cg_reuses_workspace_and_graphs(cuda, m, dtype):
+    """Two solves in a row with other matrices and right-hand sides give
+    the bits of fresh solves (new workspace, new graphs)."""
+    offsets, data = p1_operator(cuda, m - 1, m - 1)
+    systems = [tuple(t.to(dtype) for t in dia_cg_system(
+        cuda, offsets, data, m, seed, m2d_scale=scale))
+        for seed, scale in ((0, 1.0), (5, 0.5))]
+    first = [dia_cg.solve(offsets, eff, b, 1e-5, 2000)
+             for eff, b in systems]
+    assert len(dia_cg._workspaces) >= 1
+    for (eff, b), (x, its) in reversed(list(zip(systems, first))):
+        dia_cg.release_workspaces()
+        assert dia_cg._workspaces == {}
+        xf, itf = dia_cg.solve(offsets, eff, b, 1e-5, 2000)
+        assert itf == its > 0 and torch.equal(xf, x)
+
+
+def test_dia_cg_workspaces_of_other_plans_share_k1(cuda):
+    """A workspace made later with a smaller shared-memory plan (33^2: one
+    staged segment) leaves an earlier one with a larger plan (257^2:
+    three) able to capture and launch: K1's shared-memory limit belongs
+    to the kernel, not to a workspace."""
+    dia_cg.release_workspaces()
+    solved = []
+    for m in (257, 33):
+        offsets, data = p1_operator(cuda, m - 1, m - 1)
+        eff, b = dia_cg_system(cuda, offsets, data, m, 0)
+        x, its = dia_cg.solve(offsets, eff, b, 1e-5, 2000)
+        smem = dia_cg._workspace(tuple(offsets), b).k1_shape()[1]
+        solved.append((offsets, eff, b, x, its, smem))
+    assert solved[1][5] < solved[0][5] and solved[1][4] > 0
+    # a graph not yet captured on the first workspace
+    offsets, eff, b, x, its, _ = solved[0]
+    x5, i5 = dia_cg.solve(offsets, eff, b, 1e-5, 2000, chunk=5)
+    assert i5 == its > 0 and torch.equal(x5, x)
+
+
+# offsets with no two within a cluster's reach (every diagonal read
+# through the cache), a cluster beside lone diagonals, and 64 diagonals
+# (bands of one run); n chosen ragged
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n, offsets", [
+    (5000, (-1300, -450, 0, 77, 900)),
+    (2500, (-700, -2, 0, 3, 1200)),
+    (3001, tuple(range(-300, 340, 10))),
+])
+def test_dia_cg_any_offsets(cuda, n, offsets, dtype):
+    """K1 and a whole solve on a diagonally dominant random operator with
+    the given offsets: the plain version's bits."""
+    rng = np.random.default_rng(n)
+    d = rng.uniform(-1.0, 1.0, size=(len(offsets), n)) / len(offsets)
+    d[offsets.index(0)] = 2.0 + rng.random(n)
+    data = torch.as_tensor(d, dtype=dtype, device=cuda)
+    b = torch.as_tensor(rng.normal(size=n), dtype=dtype, device=cuda)
+    p = torch.as_tensor(rng.normal(size=n), dtype=dtype, device=cuda)
+    beta = torch.tensor(0.375, dtype=dtype, device=cuda)
+    for u, v in zip(dia_cg.kernel_k1(offsets, data, b, p, 0.375),
+                    dia_cg.k1_reference(offsets, data, b, p, beta)):
+        assert torch.equal(u, v)
+    xk, ik = dia_cg.solve(offsets, data, b, 1e-5, 300)
+    xp, ip = dia_cg.fused_dia_cg_reference(offsets, data, b, 1e-5, 300)
+    assert ik == ip > 0 and torch.equal(xk, xp)
+    x1, i1 = dia_cg.solve(offsets, data, b, 1e-5, 300, chunk=7)
+    assert i1 == ik and torch.equal(x1, xk)
 
 
 def test_dia_kernels_reject_bad_inputs(cuda):
