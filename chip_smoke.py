@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py              # the smoke run
     python3 chip_smoke.py --ab PARENT  # A/B of the 1024^2 solves only
-    python3 chip_smoke.py --sizes      # phases 8 and 9 at two sizes each
+    python3 chip_smoke.py --sizes      # phases 8 and 9 at two sizes each,
+                                       # three models at their CLI sizes
 
 Phases, each printing its own lines; any failure exits non-zero:
 
@@ -47,7 +48,17 @@ Phases, each printing its own lines; any failure exits non-zero:
    PhaseTimer report, (b) its first two outer steps with the device
    MINRES/Jacobi/ELL direction, held against (a): Newton counts equal, x
    within 1e-8. Phases 8 and 9 launch none of the port's CUDA kernels;
-10. a JSON line of the kernels, then the JSON status line.
+10. the LVPP example models on the general stack (spectral obstacle,
+   intersecting, eigenvalue, thermoforming and its three baselines,
+   gradient constraint, fracture), each (i) at the smallest case of its
+   CPU parity test on the card and on the CPU (counts equal, fields
+   within 1e-10 relative; thermoforming 1e-7, FIELD_RTOL), then (ii) at
+   its record size (RESULTS.md:159-171): its counts beside the JAX
+   package's CPU counts pinned here (REFERENCE_COUNTS; they must be
+   equal, thermoforming's over THERMOFORMING_HELD_STEPS), the reference
+   test's physical checks, its seconds, PhaseTimer report and peak
+   device memory, and zero launches of the port's CUDA kernels;
+11. a JSON line of the kernels, then the JSON status line.
 
 The kernel launch counters are set to 0 just before each 1024^2 solve and
 read just after it.
@@ -73,6 +84,7 @@ import numpy as np
 import torch
 
 SEED = 0
+T_START = time.perf_counter()
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 
 
@@ -958,6 +970,289 @@ def phase_lvpp(dev, n: int = LVPP_N):
     check(dx <= 1e-8, "(b) x")
 
 
+# Phase 10: the LVPP example models (models/obstacle_spectral.py,
+# intersecting.py, eigenvalue_constraints.py, thermoforming.py,
+# thermoforming_compare.py, gradient_constraint.py, fracture.py).
+MODELS = ("obstacle_spectral", "intersecting", "eigenvalue", "thermoforming",
+          "thermoforming_compare", "gradient_constraint", "fracture")
+SPECTRAL_PS = (8, 16, 24, 32, 40, 48)
+# The JAX package's counts at each model's record size (RESULTS.md:159-171,
+# sizes below), from runs of the reference on the CPU with the models'
+# default options; the port's CPU runs give the same. Spectral p >= 32:
+# the port's CPU counts (the reference's CPU dense f64 loop takes minutes a
+# Newton step there; it agrees with the port up to p = 24).
+REFERENCE_COUNTS = {
+    "obstacle_spectral": {"f64": [28, 110, 109, 109, 107, 107],
+                          "f32_refine": [28, 110, 109, 109, 107, 107]},
+    "intersecting": {"lvpp": [7, 12, 3, 3, 3, 3],
+                     "newton": [37, 49, 5, 5, 5, 5]},
+    "eigenvalue": {"lvpp": 7, "newton": [6, 3, 2, 2, 2, 1, 1]},
+    "thermoforming": {"lvpp": 46, "newton": [
+        6, 4, 5, 11, 6, 2, 1, 1, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 12, 1, 1, 1,
+        1, 1, 1, 1, 1, 1, 1, 1, 1, 19, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+        1]},
+    "thermoforming_compare": {"moreau_yosida": [12, 104],
+                              "fixed_point": [16, 323],
+                              "semismooth": [66, 66]},
+    "gradient_constraint": {"lvpp": 19, "newton": [
+        5, 6, 4, 4, 4, 3, 3, 3, 3, 3, 2, 2, 2, 2, 1, 1, 1, 1, 1]},
+    "fracture": {"newton": [37, 30, 27, 25, 20, 20, 18, 16, 15, 67, 362, 93,
+                            32, 8, 26, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8,
+                            8],
+                 "lvpp": [12, 12, 12, 11, 9, 9, 8, 8, 7, 13, 24, 15, 6, 2, 5,
+                          2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2],
+                 "retries": [0] * 10 + [5] + [0] * 18, "broken": False},
+}
+
+
+# Bound of phase 10 (i) and of the gpu test on max |card - cpu| / max |cpu|
+# of each field: 1e-10, except thermoforming's 1e-7, whose Newton solves
+# stop at an absolute residual of 1e-5 after one step each at the capped
+# alpha, which fixes its iterate only to about 1e-9 (1.7e-9 to 5.4e-9 in
+# three runs on an H100 at M = 24, with every count equal)
+FIELD_RTOL = {"thermoforming": 1e-7}
+
+
+def field_rtol(name: str) -> float:
+    return FIELD_RTOL.get(name, 1e-10)
+
+
+def rel_field(a, b) -> float:
+    """max |a - b| / max |b| of two host arrays."""
+    a, b = np.asarray(a, float), np.asarray(b, float)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+
+def model_case(name: str, dev):
+    """The smallest case of the model's CPU parity test
+    (tests/test_torch_<model>.py) on dev: (counts, fields as host
+    arrays)."""
+    from proximalgalerkin_torch.models import (eigenvalue_constraints,
+                                               fracture, gradient_constraint,
+                                               intersecting, obstacle_spectral,
+                                               thermoforming,
+                                               thermoforming_compare)
+    if name == "obstacle_spectral":
+        counts, fields = {}, {}
+        for dt in ("f64", "f32_refine"):
+            cu, its, _ = obstacle_spectral.spectral_obstacle_solve(
+                8, solve_dtype=dt, device=dev)
+            counts[dt], fields["cu_" + dt] = its, cu
+        return counts, fields
+    if name == "intersecting":
+        r = intersecting.solve_intersecting(
+            n_cells=201, phis=(3.0, 1.0, 0.1), verbose=False, device=dev)
+        return ({"lvpp": r.lvpp_iterations, "newton": r.newton_iterations,
+                 "converged": r.converged}, {"u": r.u})
+    if name == "eigenvalue":
+        r = eigenvalue_constraints.solve_eigenvalue_constraints(
+            N=10, degree=2, quadrature_degree=8, tol=1e-8, verbose=False,
+            device=dev)
+        return ({"lvpp": r.lvpp.iterations, "newton": r.lvpp.newton_steps},
+                {"q1": r.q1, "q2": r.q2})
+    if name == "thermoforming":
+        r = thermoforming.solve_thermoforming(
+            M=24, verbose=False, termination_tol=1e-7, device=dev)
+        return ({"lvpp": r.lvpp_iterations, "newton": r.newton_iterations},
+                {"u": r.u, "T": r.T, "psi": r.psi})
+    if name == "thermoforming_compare":
+        counts, fields = {}, {}
+        for fn, kw in (("moreau_yosida_solve", {"max_outer": 15}),
+                       ("fixed_point_solve", {}),
+                       ("semismooth_active_set_solve", {})):
+            b = getattr(thermoforming_compare, fn)(M=20, verbose=False,
+                                                   device=dev, **kw)
+            counts[fn] = [b.outer_iterations, b.linear_solves, b.converged]
+            fields[fn + ".u"], fields[fn + ".T"] = b.u, b.T
+        return counts, fields
+    if name == "gradient_constraint":
+        prob, r = gradient_constraint.solve_gradient_constraint(
+            N=8, M=8, primal_degree=1, max_iterations=30, stopping_tol=1e-6,
+            verbose=False, quadrature_degree=4, device=dev)
+        return ({"lvpp": r.iterations, "newton": r.newton_steps},
+                {"u": prob.u(r), "psi": prob.psi(r)})
+    if name == "fracture":
+        r = fracture.solve_fracture(max_res=0.4, Tmax=0.6, num_load_steps=4,
+                                    verbose=False, device=dev)
+        return ({"newton": r.newton_per_step, "lvpp": r.lvpp_per_step,
+                 "retries": r.retries_per_step, "broken": r.broken},
+                {"u": r.u, "c": r.c})
+    raise ValueError(name)
+
+
+def model_record(name: str, dev, timer):
+    """The model at its record size on dev, its Newton solvers adding to
+    `timer`: (counts comparable with REFERENCE_COUNTS[name], [(check,
+    passed)], lines to print)."""
+    from proximalgalerkin_torch.models import (eigenvalue_constraints,
+                                               fracture, gradient_constraint,
+                                               intersecting, obstacle_spectral,
+                                               thermoforming,
+                                               thermoforming_compare)
+    if name == "obstacle_spectral":
+        sweeps = {dt: obstacle_spectral.spectral_p_sweep(
+            ps=SPECTRAL_PS, solve_dtype=dt, device=dev)
+            for dt in ("f64", "f32_refine")}
+        a, b = sweeps["f64"], sweeps["f32_refine"]
+        dsup = max(abs(x - y) for x, y in zip(a.sup_errors[1:],
+                                              b.sup_errors[1:]))
+        lines = [f"  {dt} p {list(SPECTRAL_PS)}: sup diffs "
+                 f"{[float(f'{v:.6g}') for v in s.sup_errors]}; phases "
+                 f"{s.phases}" for dt, s in sweeps.items()]
+        return ({dt: s.newton_its for dt, s in sweeps.items()},
+                [("f32_refine Newton counts equal f64's",
+                  a.newton_its == b.newton_its),
+                 (f"sup-differences agree within 1e-8 ({dsup:.2e})",
+                  dsup < 1e-8)], lines)
+    if name == "intersecting":
+        from proximalgalerkin_torch.models.intersecting import smooth_bump
+        r = intersecting.solve_intersecting(n_cells=1001, verbose=False,
+                                            device=dev, timer=timer)
+        xs = np.linspace(0, 1, 1002)
+        low = float((r.u - smooth_bump(xs)).min())
+        du = np.diff(r.u) / (xs[1] - xs[0])
+        mask = (xs[:-1] < 0.19) | (xs[:-1] > 0.81)
+        dmax = float(np.abs(du[mask]).max())
+        return ({"lvpp": r.lvpp_iterations, "newton": r.newton_iterations},
+                [("all continuation steps converged", all(r.converged)),
+                 (f"u - bump > -1e-3 ({low:.3e})", low > -1e-3),
+                 (f"|u'| < 0.105 outside the window ({dmax:.4f})",
+                  dmax < 0.105)], [])
+    if name == "eigenvalue":
+        r = eigenvalue_constraints.solve_eigenvalue_constraints(
+            N=20, degree=3, tol=1e-10, verbose=False, device=dev, timer=timer)
+        lo, hi = r.eigenvalue_range()
+        return ({"lvpp": r.lvpp.iterations, "newton": r.lvpp.newton_steps},
+                [("converged", r.lvpp.converged),
+                 (f"eigenvalue range [{lo!r}, {hi!r}] within [-0.5 - 1e-8, "
+                  "0.5 + 1e-8], hi > 0.45",
+                  lo >= -0.5 - 1e-8 and 0.45 < hi <= 0.5 + 1e-8)], [])
+    if name == "thermoforming":
+        r = thermoforming.solve_thermoforming(M=48, verbose=False,
+                                              device=dev, timer=timer)
+        viol = float((r.u - r.mould).max())
+        return ({"lvpp": r.lvpp_iterations, "newton": r.newton_iterations},
+                [("converged", r.converged),
+                 (f"max(u - mould) < 0.02 ({viol:.3e})", viol < 0.02),
+                 (f"0 < T < 25 ([{r.T.min():.4f}, {r.T.max():.4f}])",
+                  0.0 < r.T.min() and r.T.max() < 25.0)],
+                [f"  total Newton {r.total_newton}"])
+    if name == "thermoforming_compare":
+        counts, checks = {}, []
+        for key, fn in (("moreau_yosida", "moreau_yosida_solve"),
+                        ("fixed_point", "fixed_point_solve"),
+                        ("semismooth", "semismooth_active_set_solve")):
+            b = getattr(thermoforming_compare, fn)(M=48, verbose=False,
+                                                   device=dev, timer=timer)
+            counts[key] = [b.outer_iterations, b.linear_solves]
+            checks.append((f"{key} converged", b.converged))
+        return counts, checks, []
+    if name == "gradient_constraint":
+        prob, r = gradient_constraint.solve_gradient_constraint(
+            N=48, M=48, primal_degree=2, alpha_scheme="doubling",
+            stopping_tol=1e-8, verbose=False, device=dev, timer=timer)
+        form = prob.form
+        _, grads = form._eval_field("u", r.x, form.cell_data)
+        gn = np.linalg.norm(grads[:, :, 0, :].cpu().numpy(), axis=-1)
+        xq = form.xq.cpu().numpy()
+        phi_q = gradient_constraint.default_phi(
+            xq.reshape(-1, 2).T).reshape(gn.shape)
+        viol = float(np.maximum(gn - phi_q, 0.0).mean())
+        return ({"lvpp": r.iterations, "newton": r.newton_steps},
+                [("converged", r.converged),
+                 (f"mean positive violation of |grad u| <= phi < 0.01 "
+                  f"({viol:.3e})", viol < 0.01)],
+                [f"  total Newton {r.total_newton}"])
+    if name == "fracture":
+        r = fracture.solve_fracture(max_res=0.1, Tmin=0.0, Tmax=3.0,
+                                    num_load_steps=30, verbose=False,
+                                    device=dev, timer=timer)
+        d = r.max_damage_history
+        mono = all(d[i + 1] >= d[i] - 2e-2 for i in range(len(d) - 1))
+        return ({"newton": r.newton_per_step, "lvpp": r.lvpp_per_step,
+                 "retries": r.retries_per_step, "broken": r.broken},
+                [("max damage monotone within 2e-2", mono),
+                 (f"c in (-0.05, 1.1) ([{r.c.min():.4f}, {r.c.max():.4f}])",
+                  r.c.min() > -0.05 and r.c.max() < 1.1)],
+                [f"  {len(d)} load steps, total Newton "
+                 f"{sum(r.newton_per_step)}, max damage {max(d):.4f}"])
+    raise ValueError(name)
+
+
+# Thermoforming at M = 48 walks a tail that residuals differing in their
+# 12th digit change once alpha reaches its cap 2^14 at LVPP step 11
+# (ROADMAP section C): its Newton counts are held to the reference's over
+# the 10 solves before the cap
+THERMOFORMING_HELD_STEPS = 10
+
+
+def counts_agree(name: str, counts: dict) -> tuple:
+    """(agree, what was compared) of a record run's counts and the pinned
+    ones: equal, except thermoforming's, whose Newton counts are compared
+    over its first THERMOFORMING_HELD_STEPS Newton solves."""
+    ref = REFERENCE_COUNTS[name]
+    if name == "thermoforming":
+        k = THERMOFORMING_HELD_STEPS
+        return (counts["newton"][:k] == ref["newton"][:k],
+                f"the first {k} Newton counts")
+    return counts == ref, "all counts"
+
+
+def phase_models(dev, names=MODELS):
+    print("== phase 10: the LVPP example models on the card", flush=True)
+    from proximalgalerkin_torch.core.logging import PhaseTimer
+    cpu = torch.device("cpu")
+    for name in names:
+        # (i) the smallest case of the parity test, card against CPU
+        t0 = time.perf_counter()
+        c_card, f_card = model_case(name, dev)
+        c_cpu, f_cpu = model_case(name, cpu)
+        dmax = max(rel_field(f_card[k], f_cpu[k]) for k in f_card)
+        print(f"{name} (i) card vs cpu: counts {c_card} vs {c_cpu}, max "
+              f"relative field difference {dmax:.3e} (bound "
+              f"{field_rtol(name):.0e}), {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        check(c_card == c_cpu, f"{name} (i) counts")
+        check(dmax <= field_rtol(name), f"{name} (i) fields")
+
+        # (ii) the record size
+        timer = PhaseTimer(dev)
+        reset_counters()
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        counts, checks, lines = model_record(name, dev, timer)
+        torch.cuda.synchronize(dev)
+        secs = time.perf_counter() - t0
+        launches = read_counters()
+        ref = REFERENCE_COUNTS[name]
+        tot = timer.totals
+        lu = tot.get("lu_factor", 0.0) + tot.get("lu_solve", 0.0)
+        asm = tot.get("assembly", 0.0)
+        res = tot.get("residual", 0.0) + tot.get("linesearch", 0.0)
+        print(f"{name} (ii) record size: {secs:.2f} s, counts {counts}; "
+              f"reference {ref}; peak device memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
+              f"launches of the port's CUDA kernels {launches}", flush=True)
+        for line in lines:
+            print(line, flush=True)
+        if tot:
+            print(f"  shares of the run: SuperLU (lu_factor + lu_solve) "
+                  f"{100 * lu / secs:.1f}%, element-matrix assembly "
+                  f"{100 * asm / secs:.1f}%, residuals (Newton and line "
+                  f"search) {100 * res / secs:.1f}%; PhaseTimer:\n    "
+                  + timer.report().replace("\n", "\n    "), flush=True)
+        for what, ok in checks:
+            print(f"  check {what}: {'ok' if ok else 'FAILED'}", flush=True)
+            check(ok, f"{name} (ii) {what}")
+        agree, what = counts_agree(name, counts)
+        print(f"  counts against the pinned ones ({what}): "
+              f"{'equal' if agree else 'DIFFERENT'}", flush=True)
+        check(all(v == 0 for v in launches.values()),
+              f"{name} (ii) launches none of the port's CUDA kernels")
+        check(agree, f"{name} (ii) {what} equal the pinned ones")
+
+
 def ab_child(pc: str, out: str):
     """One 1024^2 mixed solve with `pc` of the package in the working
     directory (after a warm-up solve); saves u to `out` and prints one
@@ -1034,8 +1329,12 @@ def ab(parent: str):
 
 
 def sizes():
-    """The measurement that fixed FD_N and LVPP_N: phase 9 at 224^2 and
-    160^2, phase 8 at N = 1025 and 513."""
+    """The measurements that fixed the sizes of phases 8-10: phase 9 at
+    224^2 and 160^2, phase 8 at N = 1025 and 513; then the CLI-size runs
+    of three models: thermoforming at M = 150, the whole 29-step fracture
+    record, and eigenvalue at N = 100 P3 cut
+    to its first Newton step (one assembly, one nested-dissection SuperLU
+    factor of the 362,404-dof system)."""
     phase_card()
     dev = torch.device("cuda", 0)
     for n in (224, 160):
@@ -1047,6 +1346,46 @@ def sizes():
         t0 = time.perf_counter()
         phase_fd(dev, N)
         print(f"phase 8 at N={N}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    sizes_models(dev)
+
+
+def sizes_models(dev):
+    """The three models of sizes() at their CLI sizes, each with its
+    seconds, counts, peak device memory and PhaseTimer report."""
+    from proximalgalerkin_torch.core.logging import PhaseTimer
+    from proximalgalerkin_torch.models import (eigenvalue_constraints,
+                                               fracture, thermoforming)
+    runs = (
+        ("thermoforming M=150", lambda tm: thermoforming.solve_thermoforming(
+            M=150, verbose=False, device=dev, timer=tm),
+         lambda r: f"LVPP {r.lvpp_iterations}, Newton {r.total_newton}, "
+                   f"converged {r.converged}"),
+        ("fracture res 0.1, 29 load steps", lambda tm: fracture.solve_fracture(
+            max_res=0.1, Tmin=0.0, Tmax=3.0, num_load_steps=30,
+            verbose=False, device=dev, timer=tm),
+         lambda r: f"Newton {r.newton_per_step} (total "
+                   f"{sum(r.newton_per_step)}), LVPP {r.lvpp_per_step}, "
+                   f"retries {r.retries_per_step}, broken {r.broken}"),
+        # SuperLU's own ordering runs out of memory on this system (RESULTS.md
+        # :83-86); the reference's record used nested dissection
+        ("eigenvalue N=100 P3, first Newton step, nested-dissection LU",
+         lambda tm: eigenvalue_constraints.solve_eigenvalue_constraints(
+             N=100, degree=3, max_lvpp=1, nfail_max=0,
+             solver_options={"snes_max_it": 1, "pc_factor_ordering": "nd"},
+             verbose=False, device=dev, timer=tm),
+         lambda r: f"dofs {4 * r.q1.size}"),
+    )
+    for title, run, describe in runs:
+        timer = PhaseTimer(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        r = run(timer)
+        torch.cuda.synchronize(dev)
+        print(f"{title}: {time.perf_counter() - t0:.1f} s, {describe(r)}, "
+              f"peak device memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
+              "PhaseTimer:\n  " + timer.report().replace("\n", "\n  "),
               flush=True)
 
 
@@ -1070,6 +1409,8 @@ def main():
     c_jac = phase_main_jacobi(dev, u_mg)
     phase_fd(dev)
     phase_lvpp(dev)
+    phase_models(dev)
+    print(f"smoke run {time.perf_counter() - T_START:.1f} s", flush=True)
 
     def entry(name, source, replaces, launches, timing, **extra):
         return dict(name=name, route="cuda",

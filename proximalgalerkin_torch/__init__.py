@@ -22,10 +22,14 @@ counterpart is easy to find:
                (dia_spmv.py) and fused DIA-CG (dia_cg.py, both in
                csrc/dia.cu); _nvcc.py builds the sources
   models/      the obstacle problem (obstacle.py, the general stack), its
-               P1 lumped-mass fast path (obstacle_p1.py) and its FD
-               variant (obstacle_fd.py)
+               P1 lumped-mass fast path (obstacle_p1.py), its FD and
+               spectral variants (obstacle_fd.py, obstacle_spectral.py),
+               and the example models on the general stack
+               (intersecting, eigenvalue_constraints, thermoforming and
+               thermoforming_compare, gradient_constraint, fracture)
   utils/       LVPP checkpoints (the reference's file format)
-  cli.py       the `obstacle`, `obstacle-fd` and `bench` subcommands
+  cli.py       the `obstacle`, `obstacle-fd`, model and `bench`
+               subcommands
 
 Nothing here imports jax. Device placement is explicit: callers pass a
 `device` (entry points default to the card); a CPU tensor takes each

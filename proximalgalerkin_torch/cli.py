@@ -1,16 +1,25 @@
 """Command-line interface of the port:
 
-    python -m proximalgalerkin_torch obstacle [-p 1|2] [--alpha-scheme S]
-        [--disk-res R] [--output-dir DIR] [--device cuda]
-    python -m proximalgalerkin_torch obstacle-fd [-N 65] [--device cuda]
-    python -m proximalgalerkin_torch bench -n 1024 [--device cuda]
-        [--pc {mg,jacobi}] [--fused]
+    python -m proximalgalerkin_torch [--opt KEY=VALUE ...] <subcommand>
 
-`obstacle` and `obstacle-fd` are the reference CLI's subcommands of the
-same names, with its flags and defaults (Example 01 on the unstructured
-disk mesh with the general LVPP stack, writing the per-iteration CSV and
-u.vtu; and the finite-difference variant). `--n-devices` (the
-dof-partitioned multi-device path) is not ported yet (ROADMAP A12).
+    obstacle [-p 1|2] [--alpha-scheme S] [--disk-res R] [--output-dir DIR]
+    obstacle-fd [-N 65]
+    obstacle-spectral [--degrees 8 16 ...] [--solve-dtype f64|f32_refine]
+    fracture [--res 0.05] [--Tmin 0] [--Tmax 5] [--num-load-steps 1001]
+    thermoforming [-M 150] [--compare]
+    gradient-constraint [-N 200] [-M 200] [--primal_degree 2]
+        [--alpha_scheme doubling] [--warm_start] [-s 1e-8]
+    eigenvalue [-N 100] [--degree 3]
+    intersecting [--cells 1001]
+    bench -n 1024 [--pc {mg,jacobi}] [--fused]
+
+The model subcommands are the reference CLI's of the same names, with its
+flags, defaults and printed lines. `--opt KEY=VALUE` (repeatable, before
+the subcommand) passes PETSc-style solver options to the models that take
+them (fracture, thermoforming, gradient-constraint, eigenvalue), with the
+reference's coercion of VALUE (int, float, true/false, else a string).
+`--n-devices` (the dof-partitioned multi-device paths of obstacle and
+fracture) is not ported yet (ROADMAP A12) and is refused.
 
 `bench` runs the north-star obstacle benchmark in this process: P1
 obstacle on rectangle_mesh(n, n) over [-1,1]^2, alpha capped at 1e2,
@@ -156,13 +165,131 @@ def _run_obstacle(args):
           f"Newton total: {result.total_newton}")
 
 
+def _add_models(sub):
+    p = sub.add_parser("obstacle-spectral",
+                       help="Example 01 spectral variant")
+    p.add_argument("--degrees", type=int, nargs="+",
+                   default=[8, 16, 24, 32, 40, 48])
+    p.add_argument("--solve-dtype", dest="solve_dtype", default="f64",
+                   choices=("f64", "f32_refine"),
+                   help="dense Newton factor precision: f32_refine factors "
+                        "in float32 with three f64 refinement passes")
+    _add_device(p)
+
+    p = sub.add_parser("fracture", help="Example 03 phase-field fracture")
+    p.add_argument("--res", type=float, default=0.05)
+    p.add_argument("--Tmin", type=float, default=0.0)
+    p.add_argument("--Tmax", type=float, default=5.0)
+    p.add_argument("--num-load-steps", type=int, default=1001)
+    p.add_argument("--n-devices", dest="n_devices", type=int, default=0,
+                   help="the dof-partitioned multi-device continuation: "
+                        "not ported yet (ROADMAP A12)")
+    _add_device(p)
+
+    p = sub.add_parser("thermoforming", help="Example 05 QVI")
+    p.add_argument("-M", type=int, default=150)
+    p.add_argument("--compare", action="store_true",
+                   help="also run MY / fixed-point / semismooth baselines")
+    _add_device(p)
+
+    p = sub.add_parser("gradient-constraint", help="Example 06")
+    p.add_argument("-N", type=int, default=200)
+    p.add_argument("-M", type=int, default=200)
+    p.add_argument("--primal_degree", type=int, default=2)
+    p.add_argument("--alpha_scheme", default="doubling")
+    p.add_argument("--warm_start", action="store_true")
+    p.add_argument("-s", "--stopping_tol", type=float, default=1e-8)
+    _add_device(p)
+
+    p = sub.add_parser("eigenvalue", help="Example 07 Landau-de Gennes")
+    p.add_argument("-N", type=int, default=100)
+    p.add_argument("--degree", type=int, default=3)
+    _add_device(p)
+
+    p = sub.add_parser("intersecting", help="Example 08")
+    p.add_argument("--cells", type=int, default=1001)
+    _add_device(p)
+
+
+def _coerce(v: str):
+    """The reference CLI's coercion of an --opt value."""
+    for cast in (int, float):
+        try:
+            return cast(v)
+        except ValueError:
+            pass
+    return {"true": True, "false": False}.get(v.lower(), v)
+
+
+def _run_model(args, opts):
+    dev = args.device
+    if args.cmd == "obstacle-spectral":
+        from .models.obstacle_spectral import spectral_p_sweep
+        r = spectral_p_sweep(ps=tuple(args.degrees), verbose=True,
+                             solve_dtype=args.solve_dtype, device=dev)
+        print("degrees:", r.degrees)
+        print("newton:", r.newton_its)
+        print("sup diffs:", r.sup_errors)
+    elif args.cmd == "fracture":
+        if args.n_devices:
+            raise SystemExit("--n-devices: the dof-partitioned multi-device "
+                             "continuation is not ported to "
+                             "proximalgalerkin_torch yet (ROADMAP A12)")
+        from .models.fracture import solve_fracture
+        r = solve_fracture(max_res=args.res, Tmin=args.Tmin, Tmax=args.Tmax,
+                           num_load_steps=args.num_load_steps,
+                           solver_options=opts, device=dev)
+        print(f"steps {len(r.load_history)} broken={r.broken}")
+    elif args.cmd == "thermoforming":
+        from .models.thermoforming import solve_thermoforming
+        r = solve_thermoforming(M=args.M, solver_options=opts, device=dev)
+        print(f"Total LVPP {r.lvpp_iterations}, Newton {r.total_newton}")
+        if args.compare:
+            from .models.thermoforming_compare import (
+                fixed_point_solve, moreau_yosida_solve,
+                semismooth_active_set_solve)
+            for name, fn in (("Moreau-Yosida", moreau_yosida_solve),
+                             ("Fixed-point", fixed_point_solve),
+                             ("Semismooth", semismooth_active_set_solve)):
+                b = fn(M=args.M, verbose=False, device=dev)
+                print(f"{name}: outer {b.outer_iterations}, "
+                      f"linear solves {b.linear_solves}")
+    elif args.cmd == "gradient-constraint":
+        from .models.gradient_constraint import solve_gradient_constraint
+        prob, r = solve_gradient_constraint(
+            N=args.N, M=args.M, primal_degree=args.primal_degree,
+            alpha_scheme=args.alpha_scheme, warm_start=args.warm_start,
+            stopping_tol=args.stopping_tol, solver_options=opts, device=dev)
+        print(f"Number of LVPP iterations {r.iterations}")
+        print(f"Total number of Newton iterations: {r.total_newton}")
+    elif args.cmd == "eigenvalue":
+        from .models.eigenvalue_constraints import (
+            solve_eigenvalue_constraints)
+        r = solve_eigenvalue_constraints(N=args.N, degree=args.degree,
+                                         solver_options=opts, device=dev)
+        lo, hi = r.eigenvalue_range()
+        print(f"#LVPP {r.lvpp.iterations} #Newton {r.lvpp.total_newton} "
+              f"eig range [{lo:.4f}, {hi:.4f}]")
+    elif args.cmd == "intersecting":
+        from .models.intersecting import solve_intersecting
+        r = solve_intersecting(n_cells=args.cells, device=dev)
+        print(f"num_lvpp_iterations={r.lvpp_iterations}")
+        print(f"num_newton_iterations={r.newton_iterations}")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="proximalgalerkin_torch")
+    parser.add_argument(
+        "--opt", action="append", metavar="KEY=VALUE", default=[],
+        help="solver option passthrough (PETSc-style names, e.g. "
+             "--opt snes_linesearch_type=bt); repeatable, place before the "
+             "subcommand")
     sub = parser.add_subparsers(dest="cmd", required=True)
     _add_obstacle(sub)
     p = sub.add_parser("obstacle-fd", help="Example 01 FD variant")
     p.add_argument("-N", type=int, default=65)
     _add_device(p)
+    _add_models(sub)
     p = sub.add_parser("bench", help="north-star obstacle benchmark")
     p.add_argument("-n", type=int, default=1024)
     _add_device(p)
@@ -172,6 +299,8 @@ def main(argv=None):
     p.add_argument("--fused", action="store_true",
                    help="run solve_fused() (totals only) instead of solve()")
     args = parser.parse_args(argv)
+    opts = {k: _coerce(v) for k, v in
+            (kv.split("=", 1) for kv in args.opt)} or None
     if args.cmd == "obstacle":
         _run_obstacle(args)
     elif args.cmd == "obstacle-fd":
@@ -181,6 +310,8 @@ def main(argv=None):
     elif args.cmd == "bench":
         print(json.dumps(run_bench(args.n, args.device, args.pc,
                                    args.fused)), flush=True)
+    else:
+        _run_model(args, opts)
 
 
 if __name__ == "__main__":

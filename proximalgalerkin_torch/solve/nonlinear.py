@@ -174,14 +174,26 @@ class NonlinearProblem:
         self.form = form
         self.space = form.space
         self.device = form.device
-        bc_idx, bc_vals = self.space.global_bc_arrays(list(bcs))
-        self._bc_idx_host = np.asarray(bc_idx, dtype=np.int64)
-        self.bc_idx = torch.as_tensor(self._bc_idx_host, device=self.device)
-        self.bc_vals = torch.as_tensor(np.asarray(bc_vals), dtype=form.dtype,
-                                       device=self.device)
+        self._direction_cache = {}
+        self.set_bc_arrays(*self.space.global_bc_arrays(list(bcs)))
         self.coeffs = dict(coeffs or {})
         self.consts = dict(consts or {})
-        self._direction_cache = {}
+
+    def set_bc_arrays(self, bc_idx, bc_vals):
+        """Set the Dirichlet dofs and values (e.g. a load step's moving
+        boundary data): the device index and values and the host copy of
+        the index change together. A new set of dofs drops the ELL
+        operator and the direction solvers built on the old one."""
+        idx = np.asarray(bc_idx, dtype=np.int64)
+        old = getattr(self, "_bc_idx_host", None)
+        if old is not None and not np.array_equal(old, idx):
+            self.__dict__.pop("_ell", None)
+            self._direction_cache.clear()
+        self._bc_idx_host = idx
+        self.bc_idx = torch.as_tensor(idx, device=self.device)
+        self.bc_vals = torch.as_tensor(np.asarray(bc_vals),
+                                       dtype=self.form.dtype,
+                                       device=self.device)
 
     # -------------------------------------------------------------- data
 

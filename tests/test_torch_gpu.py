@@ -14,7 +14,8 @@ from proximalgalerkin_torch.models.obstacle_p1 import P1ObstacleSolver
 from proximalgalerkin_torch.ops import dia_cg, mgfused
 from proximalgalerkin_torch.ops.dia_spmv import dia_spmv, dia_spmv_reference
 
-from chip_smoke import dia_cg_system, grids_on, p1_operator, residual_ratio
+from chip_smoke import (MODELS, dia_cg_system, field_rtol, grids_on,
+                        model_case, p1_operator, rel_field, residual_ratio)
 
 pytestmark = pytest.mark.gpu
 
@@ -308,6 +309,19 @@ def test_lvpp_obstacle_on_card_matches_cpu(cuda):
     assert rc.converged and rc.newton_steps == rh.newton_steps
     assert rc.iterations == rh.iterations
     assert np.abs(pc.u(rc) - ph.u(rh)).max() <= 1e-10
+
+
+@pytest.mark.parametrize("name", MODELS)
+def test_model_on_card_matches_cpu(cuda, name):
+    """Each LVPP example model at the smallest case of its CPU parity test
+    (chip_smoke.model_case) on the card and on the CPU: counts equal,
+    every field within 1e-10 relative (thermoforming 1e-7: its Newton
+    tolerance fixes its iterate only to about 1e-9; chip_smoke.FIELD_RTOL)."""
+    c_card, f_card = model_case(name, cuda)
+    c_cpu, f_cpu = model_case(name, torch.device("cpu"))
+    assert c_card == c_cpu
+    for k in f_card:
+        assert rel_field(f_card[k], f_cpu[k]) <= field_rtol(name), k
 
 
 def test_fd_obstacle_on_card_matches_cpu(cuda):
