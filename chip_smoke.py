@@ -4,6 +4,8 @@
     python3 chip_smoke.py --ab PARENT  # A/B of the 1024^2 solves only
     python3 chip_smoke.py --sizes      # phases 8 and 9 at two sizes each,
                                        # three models at their CLI sizes
+    python3 chip_smoke.py --record KEY # one MULTIPHASE_RECORDS run, as a
+                                       # JSON line (phase 11 (iv)'s child)
 
 Phases, each printing its own lines; any failure exits non-zero:
 
@@ -50,15 +52,41 @@ Phases, each printing its own lines; any failure exits non-zero:
    within 1e-8. Phases 8 and 9 launch none of the port's CUDA kernels;
 10. the LVPP example models on the general stack (spectral obstacle,
    intersecting, eigenvalue, thermoforming and its three baselines,
-   gradient constraint, fracture), each (i) at the smallest case of its
+   gradient constraint, fracture): (i) each at the smallest case of its
    CPU parity test on the card and on the CPU (counts equal, fields
-   within 1e-10 relative; thermoforming 1e-7, FIELD_RTOL), then (ii) at
-   its record size (RESULTS.md:159-171): its counts beside the JAX
+   within 1e-10 relative; thermoforming 1e-7, FIELD_RTOL), then, after
+   phase 11 (i) and (iv), (ii) each at its record size (RESULTS.md:159-171; fracture cut to its first
+   FRACTURE_LOAD_STEPS load steps): its counts beside the JAX
    package's CPU counts pinned here (REFERENCE_COUNTS; they must be
    equal, thermoforming's over THERMOFORMING_HELD_STEPS), the reference
    test's physical checks, its seconds, PhaseTimer report and peak
    device memory, and zero launches of the port's CUDA kernels;
-11. a JSON line of the kernels, then the JSON status line.
+11. the block-tridiagonal direct direction (la/blocktri.py,
+   pc_type='btlu') and the multiphase model (models/multiphase.py), as
+   torch ops on the card: (i) the smallest case of each new CPU parity
+   test on the card and on the CPU (gradient constraint 12^2 P2 with
+   btlu Thomas f32, cyclic reduction, streamed and lagged f64 factor /
+   f32 apply; multiphase N = 10, two steps, with LU and with the fused
+   lagged btlu): counts equal, fields within 1e-10 relative; (ii) phase
+   9's 160^2 obstacle with btlu, f64 and f32 factor, held to the JAX
+   package's CPU outcome (BTLU_OBSTACLE: the block elimination breaks
+   down at outer step 6-7 in both packages) and to (a)'s Newton counts
+   before it; (iii) gradient constraint 48^2 P2 and eigenvalue 20^2 P3
+   with btlu (counts equal to the pinned LU ones); (iv) multiphase at
+   24^2, dt 1e-4, 5 steps, default LU (host SuperLU, in a child process
+   on the same card beside phases 10 (i) and 11 (i), which time nothing;
+   the timed runs start after it has ended); (v) multiphase
+   at 50^2 (61,212 dofs), its first 5 steps of dt 1e-5 through the fused
+   lagged btlu (f64 factor, f32 apply, lag 1, snes_fused_chunk 3):
+   per-step counts equal to the JAX package's CPU counts pinned here,
+   mass conserved to 1e-10, simplex row sums within 1e-6; each with its
+   seconds, factor/solve shares, refactors, PhaseTimer report and peak
+   device memory, and zero launches of the port's CUDA kernels; then the
+   time of one factor and one apply at the block shapes of (ii) and (v);
+12. a JSON line of the kernels, then the JSON status line.
+
+Lines starting "--" give the time into the run at which each group of
+phases ended.
 
 The kernel launch counters are set to 0 just before each 1024^2 solve and
 read just after it.
@@ -968,6 +996,7 @@ def phase_lvpp(dev, n: int = LVPP_N):
         "\n", "\n  "), flush=True)
     check(res_b.newton_steps == res.newton_steps[:2], "(b) Newton counts")
     check(dx <= 1e-8, "(b) x")
+    return res, elapsed, prob.solver.timer
 
 
 # Phase 10: the LVPP example models (models/obstacle_spectral.py,
@@ -1164,9 +1193,12 @@ def model_record(name: str, dev, timer):
                   f"({viol:.3e})", viol < 0.01)],
                 [f"  total Newton {r.total_newton}"])
     if name == "fracture":
-        r = fracture.solve_fracture(max_res=0.1, Tmin=0.0, Tmax=3.0,
-                                    num_load_steps=30, verbose=False,
-                                    device=dev, timer=timer)
+        # the record's loads are linspace(0, 3, 30)[1:]; these are its
+        # first FRACTURE_LOAD_STEPS, bit for bit
+        k = FRACTURE_LOAD_STEPS
+        r = fracture.solve_fracture(
+            max_res=0.1, Tmin=0.0, Tmax=float(np.linspace(0.0, 3.0, 30)[k]),
+            num_load_steps=k + 1, verbose=False, device=dev, timer=timer)
         d = r.max_damage_history
         mono = all(d[i + 1] >= d[i] - 2e-2 for i in range(len(d) - 1))
         return ({"newton": r.newton_per_step, "lvpp": r.lvpp_per_step,
@@ -1184,26 +1216,46 @@ def model_record(name: str, dev, timer):
 # (ROADMAP section C): its Newton counts are held to the reference's over
 # the 10 solves before the cap
 THERMOFORMING_HELD_STEPS = 10
+# Fracture's record runs its first 9 of 29 load steps (their loads equal
+# the record's bit for bit; 208 of its 908 Newton steps), so that the
+# smoke run, with phase 11's 24^2 multiphase LU record of about 400 s of
+# host SuperLU, stays well inside its time limit; `--sizes` runs all 29
+FRACTURE_LOAD_STEPS = 9
 
 
 def counts_agree(name: str, counts: dict) -> tuple:
     """(agree, what was compared) of a record run's counts and the pinned
     ones: equal, except thermoforming's, whose Newton counts are compared
-    over its first THERMOFORMING_HELD_STEPS Newton solves."""
+    over its first THERMOFORMING_HELD_STEPS Newton solves, and fracture's,
+    compared over its first FRACTURE_LOAD_STEPS load steps."""
     ref = REFERENCE_COUNTS[name]
     if name == "thermoforming":
         k = THERMOFORMING_HELD_STEPS
         return (counts["newton"][:k] == ref["newton"][:k],
                 f"the first {k} Newton counts")
+    if name == "fracture":
+        k = FRACTURE_LOAD_STEPS
+        return ({key: v[:k] if isinstance(v, list) else v
+                 for key, v in counts.items()}
+                == {key: v[:k] if isinstance(v, list) else v
+                    for key, v in ref.items()},
+                f"the counts of the first {k} load steps")
     return counts == ref, "all counts"
 
 
 def phase_models(dev, names=MODELS):
-    print("== phase 10: the LVPP example models on the card", flush=True)
-    from proximalgalerkin_torch.core.logging import PhaseTimer
+    """Phase 10 alone: phase_model_cases, then phase_model_records."""
+    phase_model_cases(dev, names)
+    phase_model_records(dev, names)
+
+
+def phase_model_cases(dev, names=MODELS):
+    """Phase 10 (i): each model at the smallest case of its parity test,
+    the card against the CPU (counts and fields; nothing timed)."""
+    print("== phase 10 (i): the LVPP example models, card against CPU",
+          flush=True)
     cpu = torch.device("cpu")
     for name in names:
-        # (i) the smallest case of the parity test, card against CPU
         t0 = time.perf_counter()
         c_card, f_card = model_case(name, dev)
         c_cpu, f_cpu = model_case(name, cpu)
@@ -1215,7 +1267,13 @@ def phase_models(dev, names=MODELS):
         check(c_card == c_cpu, f"{name} (i) counts")
         check(dmax <= field_rtol(name), f"{name} (i) fields")
 
-        # (ii) the record size
+
+def phase_model_records(dev, names=MODELS):
+    """Phase 10 (ii): each model at its record size, timed."""
+    print("== phase 10 (ii): the LVPP example models at their record sizes",
+          flush=True)
+    from proximalgalerkin_torch.core.logging import PhaseTimer
+    for name in names:
         timer = PhaseTimer(dev)
         reset_counters()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1251,6 +1309,332 @@ def phase_models(dev, names=MODELS):
         check(all(v == 0 for v in launches.values()),
               f"{name} (ii) launches none of the port's CUDA kernels")
         check(agree, f"{name} (ii) {what} equal the pinned ones")
+
+
+# Phase 11: the block-tridiagonal direct direction (la/blocktri.py,
+# pc_type='btlu') and the multiphase model (models/multiphase.py).
+BTLU = {"ksp_type": "preonly", "pc_type": "btlu"}
+# The full-LVPP cases of tests/test_torch_blocktri.py; cyclic reduction
+# refines to 1e-11 as the reference's test does
+BTLU_CASES = {
+    "thomas_f32": {"ksp_rtol": 1e-9},
+    "cr": {"pc_factor_algo": "cr", "ksp_rtol": 1e-11},
+    "streamed": {"pc_factor_streamed": True, "ksp_rtol": 1e-9},
+    "lagged_f64_f32apply": {"pc_factor_lag": 1, "pc_factor_dtype": "f64",
+                            "pc_factor_apply_dtype": "f32",
+                            "ksp_rtol": 1e-9},
+}
+# The multiphase record's option set (tests/test_multiphase.py)
+MULTIPHASE_FUSED = {"snes_fused": True, "ksp_type": "preonly",
+                    "pc_type": "btlu", "ksp_rtol": 1e-9,
+                    "pc_factor_dtype": "f64", "pc_factor_lag": 1}
+MULTIPHASE_CASES = {"lu": None, "fused_btlu": MULTIPHASE_FUSED}
+# The JAX package's CPU counts: multiphase at the RESULTS.md:164 record
+# (24^2, dt 1e-4, 5 steps, tol 1e-5, default options; the record says
+# Newton [74, 45, 46, 44, 44]) and the first 5 steps of the CLI's 50^2
+# protocol (dt 1e-5, tol 1e-5, with the record's lagged nested-dissection
+# LU, pc_factor_lag 1 and pc_factor_ordering nd: SuperLU's own ordering
+# takes minutes a factor there; records/rec_multiphase_50.jsonl has the
+# same counts)
+REFERENCE_COUNTS["multiphase_24"] = {"newton": [75, 45, 46, 44, 44],
+                                     "lvpp": [20, 20, 20, 20, 20]}
+REFERENCE_COUNTS["multiphase_50"] = {"newton": [77, 45, 32, 34, 31],
+                                     "lvpp": [20, 20, 14, 15, 14]}
+# Phase 9's 160^2 obstacle with btlu (ksp_rtol 1e-9): in the JAX
+# package's CPU runs neither factor dtype converges — the unpivoted block
+# elimination of the saddle breaks down once alpha grows (f64: a first
+# apply with relative residual 2e14 at alpha 85, outer step 7; f32 one
+# outer step earlier) and the Newton solve ends in DIVERGED_FNORM_NAN.
+# The card is held to that outcome; the counts before it equal (a)'s.
+# tests/test_torch_blocktri.py holds the two packages' outcomes equal at
+# 40^2 on the CPU (there the f32 factor breaks down, the f64 converges).
+BTLU_OBSTACLE = {"f64": {"lvpp": 6, "newton_steps": [5, 4, 3, 3, 1, 1],
+                         "converged": False},
+                 "f32": {"lvpp": 5, "newton_steps": [5, 4, 3, 3, 1],
+                         "converged": False}}
+
+
+def btlu_case(name: str, dev):
+    """The gradient-constraint 12^2 P2 LVPP of tests/test_torch_blocktri.py
+    with the btlu option set `name` (or "lu", the default direction) on
+    dev: (counts, fields as host arrays)."""
+    from proximalgalerkin_torch.models import gradient_constraint
+    opts = None if name == "lu" else {**BTLU, **BTLU_CASES[name]}
+    prob, r = gradient_constraint.solve_gradient_constraint(
+        N=12, M=12, primal_degree=2, max_iterations=25, stopping_tol=1e-8,
+        verbose=False, quadrature_degree=6, device=dev,
+        solver_options=opts)
+    return ({"lvpp": r.iterations, "newton": r.newton_steps,
+             "converged": r.converged}, {"x": r.x.cpu().numpy()})
+
+
+def multiphase_case(name: str, dev):
+    """Multiphase at N = 10, two steps of dt 1e-4 (tests/test_torch_
+    multiphase.py) on dev with MULTIPHASE_CASES[name]: (counts, fields)."""
+    from proximalgalerkin_torch.models.multiphase import solve_multiphase
+    r = solve_multiphase(N=10, M=10, tau0=1e-4, T=2e-4, stopping_tol=1e-5,
+                         verbose=False, device=dev,
+                         solver_options=MULTIPHASE_CASES[name])
+    return ({"newton": r.newton_iterations.tolist(),
+             "lvpp": r.lvpp_iterations.tolist()}, {"u": r.u})
+
+
+def shares(timer, secs: float) -> str:
+    tot = timer.totals
+    parts = [f"{k} {100 * tot.get(k, 0.0) / secs:.1f}% "
+             f"({tot.get(k, 0.0):.2f} s over {timer.counts.get(k, 0)})"
+             for k in ("bt_factor", "bt_solve", "bt_assemble", "lu_factor",
+                       "lu_solve", "assembly", "residual", "linesearch")
+             if k in tot]
+    return ", ".join(parts)
+
+
+def timed_run(dev, run):
+    """run(timer) on dev with the kernel counters at 0 and the device's
+    peak memory reset: (its result, seconds, PhaseTimer, launches of the
+    port's CUDA kernels, peak GiB)."""
+    from proximalgalerkin_torch.core.logging import PhaseTimer
+    timer = PhaseTimer(dev)
+    reset_counters()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = run(timer)
+    torch.cuda.synchronize(dev)
+    secs = time.perf_counter() - t0
+    return (out, secs, timer, read_counters(),
+            torch.cuda.max_memory_allocated(dev) / 2**30)
+
+
+def phase_btlu_cases(dev):
+    """Phase 11 (i): the smallest case of each new parity test, the card
+    against the CPU (counts and fields; nothing timed)."""
+    print("== phase 11 (i): btlu and multiphase, card against CPU",
+          flush=True)
+    cpu = torch.device("cpu")
+    on_card = {}
+    for label, cases, fn in (("gradient 12^2 P2 btlu", BTLU_CASES,
+                              btlu_case),
+                             ("multiphase N=10", MULTIPHASE_CASES,
+                              multiphase_case)):
+        for name in cases:
+            t0 = time.perf_counter()
+            reset_counters()
+            c_card, f_card = fn(name, dev)
+            on_card[name] = c_card
+            launches = read_counters()
+            c_cpu, f_cpu = fn(name, cpu)
+            dmax = max(rel_field(f_card[k], f_cpu[k]) for k in f_card)
+            print(f"{label} {name} (i) card vs cpu: counts {c_card} vs "
+                  f"{c_cpu}, max relative field difference {dmax:.3e} "
+                  f"(bound 1e-10), {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+            check(c_card == c_cpu, f"{label} {name} (i) counts")
+            check(dmax <= 1e-10, f"{label} {name} (i) fields")
+            check(all(v == 0 for v in launches.values()),
+                  f"{label} {name} (i) launches none of the port's kernels")
+    # the LU direction on the card at the same size: every btlu option
+    # set takes its counts (the CPU parity test holds btlu to the JAX
+    # package's LU run)
+    c_lu, _ = btlu_case("lu", dev)
+    print(f"gradient 12^2 P2 LU on the card: counts {c_lu}", flush=True)
+    check(all(on_card[name] == c_lu for name in BTLU_CASES),
+          "gradient 12^2 P2: btlu counts equal LU's on the card")
+
+
+def phase_btlu(dev, lvpp_a, multiphase_24=None):
+    """Phase 11 (ii)-(v); lvpp_a: phase 9 (a)'s (result, seconds,
+    PhaseTimer); multiphase_24: (iv)'s readings from its RecordProcess,
+    or None to run (iv) here."""
+    print("== phase 11 (ii)-(v): block-tridiagonal direct direction (btlu) "
+          "and multiphase", flush=True)
+    # (ii) phase 9's 160^2 obstacle with btlu, beside (a)'s LU run
+    from proximalgalerkin_torch.mesh import rectangle_mesh
+    from proximalgalerkin_torch.models.obstacle import setup_obstacle_problem
+    res_a, secs_a, timer_a = lvpp_a
+    n = LVPP_N
+    mesh = rectangle_mesh(n, n, p0=(-1.0, -1.0), p1=(1.0, 1.0))
+    for fdt in ("f64", "f32"):
+        opts = {**BTLU, "ksp_rtol": 1e-9, "pc_factor_dtype": fdt}
+
+        def run(timer):
+            prob = setup_obstacle_problem(
+                mesh, polynomial_order=1, alpha_scheme="double_exponential",
+                alpha_max=1e2, tol_exit=1e-6, verbose=False, device=dev,
+                solver_options=opts)
+            return prob, prob.solve()
+
+        (prob, res), secs, _, launches, peak = timed_run(dev, run)
+        timer = prob.solver.timer
+        blk = prob.problem.line_blocking()
+        print(f"{n}^2 (ii) btlu {fdt} factor (nb {blk.nb}, bs {blk.bs}): "
+              f"{secs:.2f} s against (a)'s LU {secs_a:.2f} s, outer "
+              f"{res.iterations} newton_steps {res.newton_steps} converged "
+              f"{res.converged}; (a) {res_a.iterations} / "
+              f"{res_a.newton_steps}; peak device memory {peak:.2f} GiB; "
+              f"launches of the port's CUDA kernels {launches}", flush=True)
+        print(f"  shares: {shares(timer, secs)}; (a): "
+              f"{shares(timer_a, secs_a)}", flush=True)
+        print("  PhaseTimer:\n    " + timer.report().replace("\n", "\n    "),
+              flush=True)
+        check(all(v == 0 for v in launches.values()),
+              f"(ii) {fdt} launches none of the port's kernels")
+        got = {"lvpp": res.iterations, "newton_steps": res.newton_steps,
+               "converged": res.converged}
+        check(got == BTLU_OBSTACLE[fdt],
+              f"(ii) {fdt} outcome {got} equals the JAX package's "
+              f"{BTLU_OBSTACLE[fdt]}")
+        check(res.newton_steps == res_a.newton_steps[:res.iterations],
+              f"(ii) {fdt} Newton counts equal (a)'s up to the breakdown")
+
+    # (iii) the two P2/P3 records of phase 10 with btlu
+    from proximalgalerkin_torch.models import (eigenvalue_constraints,
+                                               gradient_constraint)
+    records = (
+        ("gradient_constraint", lambda tm: gradient_constraint.
+         solve_gradient_constraint(
+             N=48, M=48, primal_degree=2, alpha_scheme="doubling",
+             stopping_tol=1e-8, verbose=False, device=dev, timer=tm,
+             solver_options={**BTLU, "ksp_rtol": 1e-9})[1],
+         lambda r: ({"lvpp": r.iterations, "newton": r.newton_steps},
+                    r.converged)),
+        ("eigenvalue", lambda tm: eigenvalue_constraints.
+         solve_eigenvalue_constraints(
+             N=20, degree=3, tol=1e-10, verbose=False, device=dev,
+             timer=tm, solver_options={**BTLU, "ksp_rtol": 1e-9}),
+         lambda r: ({"lvpp": r.lvpp.iterations,
+                     "newton": r.lvpp.newton_steps}, r.lvpp.converged)),
+    )
+    for name, run, counts_of in records:
+        r, secs, timer, launches, peak = timed_run(dev, run)
+        counts, converged = counts_of(r)
+        print(f"{name} (iii) record size with btlu f32: {secs:.2f} s, "
+              f"counts {counts}; pinned LU {REFERENCE_COUNTS[name]}; peak "
+              f"device memory {peak:.2f} GiB; launches {launches}",
+              flush=True)
+        print(f"  shares: {shares(timer, secs)}; PhaseTimer:\n    "
+              + timer.report().replace("\n", "\n    "), flush=True)
+        check(converged, f"{name} (iii) converged")
+        check(counts == REFERENCE_COUNTS[name], f"{name} (iii) counts")
+        check(all(v == 0 for v in launches.values()),
+              f"{name} (iii) launches none of the port's kernels")
+
+    # (iv) multiphase at the 24^2 record (LU); (v) the CLI's 50^2 width
+    # (fused lagged btlu)
+    report_multiphase(multiphase_24 or multiphase_record("multiphase_24",
+                                                         dev))
+    report_multiphase(multiphase_record("multiphase_50", dev))
+    bt_timings(dev)
+
+
+def bt_timings(dev):
+    """Time of one block-Thomas factor (bt_factor) and one apply
+    (bt_apply) on the card at the block shapes of (ii) and (v), on random
+    quasi-definite blocks made from SEED (the apply in (v)'s dtype: the
+    f64 factor cast to f32), per call between CUDA events."""
+    from proximalgalerkin_torch.la import blocktri as bt
+    rng = np.random.default_rng(SEED)
+    for label, nb, bs, fdt, adt in (
+            ("(ii) 160^2 f64", 161, 322, torch.float64, torch.float64),
+            ("(ii) 160^2 f32", 161, 322, torch.float32, torch.float32),
+            ("(v) 50^2 f64 factor, f32 apply", 51, 1212, torch.float64,
+             torch.float32)):
+        def blocks(n):
+            return torch.as_tensor(rng.standard_normal((n, bs, bs))
+                                   * (0.3 / np.sqrt(bs)), dtype=fdt,
+                                   device=dev)
+        sgn = torch.as_tensor(np.where(rng.random((nb, bs)) > 0.5, 4.0,
+                                       -4.0), dtype=fdt, device=dev)
+        D = blocks(nb) + torch.diag_embed(sgn)
+        L, U = blocks(nb - 1), blocks(nb - 1)
+        b = torch.as_tensor(rng.standard_normal((nb, bs)), dtype=adt,
+                            device=dev)
+        Minv, T = bt.bt_factor(D, L, U)
+        ms_factor = per_call_ms(lambda: bt.bt_factor(D, L, U), calls=3)
+        Minv, T, La = Minv.to(adt), T.to(adt), L.to(adt)
+        ms_apply = per_call_ms(lambda: bt.bt_apply(Minv, T, La, b),
+                               calls=20)
+        print(f"btlu {label} (nb {nb}, bs {bs}): {ms_factor:.2f} ms a "
+              f"factor, {ms_apply:.3f} ms an apply", flush=True)
+        del D, L, U, Minv, T, La
+
+
+MULTIPHASE_RECORDS = {
+    "multiphase_24": ("(iv) 24^2 dt 1e-4, 5 steps, default LU",
+                      dict(N=24, M=24, tau0=1e-4, T=5e-4), None),
+    "multiphase_50": ("(v) 50^2 dt 1e-5, first 5 steps, fused lagged btlu "
+                      "(f64 factor, f32 apply, lag 1, snes_fused_chunk 3)",
+                      dict(N=50, M=50, tau0=1e-5, T=5e-5),
+                      {**MULTIPHASE_FUSED, "pc_factor_apply_dtype": "f32",
+                       "snes_fused_chunk": 3}),
+}
+
+
+def multiphase_record(key: str, dev) -> dict:
+    """One run of MULTIPHASE_RECORDS[key] on dev, as a JSON-able dict of
+    its readings."""
+    from proximalgalerkin_torch.models.multiphase import solve_multiphase
+    title, size, opts = MULTIPHASE_RECORDS[key]
+    r, secs, timer, launches, peak = timed_run(
+        dev, lambda tm: solve_multiphase(
+            stopping_tol=1e-5, verbose=False, device=dev, timer=tm,
+            solver_options=opts, **size))
+    return {"key": key, "title": title, "secs": secs,
+            "counts": {"newton": r.newton_iterations.tolist(),
+                       "lvpp": r.lvpp_iterations.tolist()},
+            "refactors": r.refactors_per_step.tolist(),
+            "dmass": max(abs(float(m[0]) - 1.0) for m in r.mass_history),
+            "rows": float(np.abs(r.u.reshape(-1, 4).sum(axis=1)
+                                 - 1.0).max()),
+            "peak_gib": peak, "launches": launches,
+            "shares": shares(timer, secs), "timer": timer.report()}
+
+
+def report_multiphase(rec: dict):
+    """Print a multiphase_record's readings and check its counts, mass,
+    simplex rows and launches."""
+    key = rec["key"]
+    steps = len(rec["counts"]["newton"])
+    print(f"{key} {rec['title']}: {rec['secs']:.2f} s "
+          f"({rec['secs'] / steps:.2f} s a step), counts {rec['counts']}; "
+          f"pinned {REFERENCE_COUNTS[key]}; refactors per step "
+          f"{rec['refactors']}; max |mass - 1| {rec['dmass']:.2e} (bound "
+          f"1e-10); max |row sum - 1| {rec['rows']:.2e} (bound 1e-6); peak "
+          f"device memory {rec['peak_gib']:.2f} GiB; launches "
+          f"{rec['launches']}", flush=True)
+    print(f"  shares: {rec['shares']}; PhaseTimer:\n    "
+          + rec["timer"].replace("\n", "\n    "), flush=True)
+    check(rec["counts"] == REFERENCE_COUNTS[key], f"{key} counts")
+    check(rec["dmass"] <= 1e-10, f"{key} mass conserved")
+    check(rec["rows"] <= 1e-6, f"{key} simplex row sums")
+    check(all(v == 0 for v in rec["launches"].values()),
+          f"{key} launches none of the port's kernels")
+
+
+class RecordProcess:
+    """MULTIPHASE_RECORDS[key] in a child process on the same card
+    (`chip_smoke.py --record KEY`). The smoke run starts it for (iv),
+    about 250 host SuperLU factors, beside the card-against-CPU checks of
+    phases 10 (i) and 11 (i), which time nothing, and waits for it before
+    any timed run. result() waits and returns its readings; stop() ends
+    it if it still runs."""
+
+    def __init__(self, key: str):
+        import os
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--record", key],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def result(self) -> dict:
+        out, err = self.proc.communicate(timeout=1200)
+        check(self.proc.returncode == 0,
+              f"the record process exited {self.proc.returncode}:\n{err}")
+        return json.loads(out.strip().splitlines()[-1])
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
 
 
 def ab_child(pc: str, out: str):
@@ -1389,6 +1773,11 @@ def sizes_models(dev):
               flush=True)
 
 
+def stamp(what: str):
+    print(f"-- {what} done, {time.perf_counter() - T_START:.1f} s into "
+          "the run", flush=True)
+
+
 def main():
     if sys.argv[1:2] == ["--ab-child"]:
         return ab_child(*sys.argv[2:4])
@@ -1396,6 +1785,11 @@ def main():
         return ab(sys.argv[2])
     if sys.argv[1:2] == ["--sizes"]:
         return sizes()
+    if sys.argv[1:2] == ["--record"]:
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        print(json.dumps(multiphase_record(sys.argv[2], dev)), flush=True)
+        return
     phase_card()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -1407,9 +1801,27 @@ def main():
     del data
     u_mg, c_mg = phase_main_mg(dev)
     c_jac = phase_main_jacobi(dev, u_mg)
+    stamp("phases 1-7")
     phase_fd(dev)
-    phase_lvpp(dev)
-    phase_models(dev)
+    stamp("phase 8")
+    lvpp_a = phase_lvpp(dev)
+    stamp("phase 9")
+    # (iv), host SuperLU for about 7 minutes, runs in a child process
+    # beside the card-against-CPU checks, which time nothing; every timed
+    # run starts after it has ended
+    multiphase_24 = RecordProcess("multiphase_24")
+    try:
+        phase_model_cases(dev)
+        phase_btlu_cases(dev)
+        stamp("phases 10 (i) and 11 (i)")
+        rec_24 = multiphase_24.result()
+    finally:
+        multiphase_24.stop()
+    stamp("the wait for phase 11 (iv)")
+    phase_model_records(dev)
+    stamp("phase 10 (ii)")
+    phase_btlu(dev, lvpp_a, rec_24)
+    stamp("phase 11 (ii)-(v)")
     print(f"smoke run {time.perf_counter() - T_START:.1f} s", flush=True)
 
     def entry(name, source, replaces, launches, timing, **extra):

@@ -14,8 +14,10 @@ counterpart is easy to find:
   assembly/    VolumeForm: residual, jvp Jacobian action, jacfwd element
                matrices and diagonal, functionals (torch.func)
   la/          ELL and DIA operators, Krylov solvers (krylov.py) on
-               device-side loops (loop.py), host SuperLU (direct.py) and
-               nested-dissection ordering (ordering.py)
+               device-side loops (loop.py), host SuperLU (direct.py),
+               nested-dissection ordering (ordering.py) and the device
+               block-tridiagonal direct solver (blocktri.py, pc_type
+               'btlu')
   solve/       NonlinearProblem, NewtonSolver (SNES semantics), LVPPSolver
   ops/         lattice multigrid (mg.py) and the kernel wrappers: fused
                MG-PCG (mgfused.py, CUDA source csrc/mgfused.cu), DIA SpMV
@@ -26,7 +28,8 @@ counterpart is easy to find:
                spectral variants (obstacle_fd.py, obstacle_spectral.py),
                and the example models on the general stack
                (intersecting, eigenvalue_constraints, thermoforming and
-               thermoforming_compare, gradient_constraint, fracture)
+               thermoforming_compare, gradient_constraint, fracture,
+               multiphase)
   utils/       LVPP checkpoints (the reference's file format)
   cli.py       the `obstacle`, `obstacle-fd`, model and `bench`
                subcommands

@@ -6,6 +6,8 @@
     obstacle-fd [-N 65]
     obstacle-spectral [--degrees 8 16 ...] [--solve-dtype f64|f32_refine]
     fracture [--res 0.05] [--Tmin 0] [--Tmax 5] [--num-load-steps 1001]
+    multiphase [-N 50] [-M 50] [--dt 1e-5] [--T 7e-3] [--alpha_scheme S]
+        [-s 1e-5]
     thermoforming [-M 150] [--compare]
     gradient-constraint [-N 200] [-M 200] [--primal_degree 2]
         [--alpha_scheme doubling] [--warm_start] [-s 1e-8]
@@ -16,8 +18,12 @@
 The model subcommands are the reference CLI's of the same names, with its
 flags, defaults and printed lines. `--opt KEY=VALUE` (repeatable, before
 the subcommand) passes PETSc-style solver options to the models that take
-them (fracture, thermoforming, gradient-constraint, eigenvalue), with the
-reference's coercion of VALUE (int, float, true/false, else a string).
+them (fracture, multiphase, thermoforming, gradient-constraint,
+eigenvalue), with the reference's coercion of VALUE (int, float,
+true/false, else a string): e.g. `--opt pc_type=btlu` solves each Newton
+system with the device block-tridiagonal factor, and `--opt snes_fused=true
+--opt pc_type=btlu --opt pc_factor_lag=1 --opt pc_factor_dtype=f64` runs
+multiphase through the fused lagged-btlu Newton.
 `--n-devices` (the dof-partitioned multi-device paths of obstacle and
 fracture) is not ported yet (ROADMAP A12) and is refused.
 
@@ -186,6 +192,15 @@ def _add_models(sub):
                         "not ported yet (ROADMAP A12)")
     _add_device(p)
 
+    p = sub.add_parser("multiphase", help="Example 04 Cahn-Hilliard")
+    p.add_argument("-N", type=int, default=50)
+    p.add_argument("-M", type=int, default=50)
+    p.add_argument("--dt", dest="tau0", type=float, default=1e-5)
+    p.add_argument("--T", type=float, default=7e-3)
+    p.add_argument("--alpha_scheme", default="constant")
+    p.add_argument("-s", "--stopping_tol", type=float, default=1e-5)
+    _add_device(p)
+
     p = sub.add_parser("thermoforming", help="Example 05 QVI")
     p.add_argument("-M", type=int, default=150)
     p.add_argument("--compare", action="store_true",
@@ -240,6 +255,14 @@ def _run_model(args, opts):
                            num_load_steps=args.num_load_steps,
                            solver_options=opts, device=dev)
         print(f"steps {len(r.load_history)} broken={r.broken}")
+    elif args.cmd == "multiphase":
+        from .models.multiphase import solve_multiphase
+        r = solve_multiphase(N=args.N, M=args.M, tau0=args.tau0, T=args.T,
+                             alpha_scheme=args.alpha_scheme,
+                             stopping_tol=args.stopping_tol,
+                             solver_options=opts, device=dev)
+        print("Newton iterations:", r.newton_iterations)
+        print("LVPP iterations:", r.lvpp_iterations)
     elif args.cmd == "thermoforming":
         from .models.thermoforming import solve_thermoforming
         r = solve_thermoforming(M=args.M, solver_options=opts, device=dev)

@@ -13,8 +13,10 @@ MUMPS stand-in: element matrices on the device, SuperLU on the host) or
 device Krylov (cg/minres/gmres/bicgstab with Jacobi preconditioning). With
 linesearch 'none' one Newton step reads the host once for its convergence
 tests; `snes_fused` runs the whole Newton loop on the device.
-
-Not ported yet: pc_type='btlu' (`_bt_direction`, ROADMAP A9).
+pc_type='btlu' solves each Newton system with the device block-tridiagonal
+factor of la/blocktri.py and f64 refinement (`_bt_direction`); with
+`snes_fused` and `pc_factor_lag` the lagged factor rides the fused loop
+(NonlinearProblem.fused_newton_btlu).
 """
 
 from __future__ import annotations
@@ -53,6 +55,9 @@ class NewtonSolver:
         self.options = options if isinstance(options, SolverOptions) \
             else SolverOptions(options or {})
         self.timer = timer or PhaseTimer(problem.device)
+        # block-tridiagonal factorizations made (pc_type='btlu'), over
+        # every solve of this solver
+        self.refactors = 0
 
     def _to_host(self, t: torch.Tensor) -> np.ndarray:
         with self.timer.phase("host_transfer"):
@@ -70,9 +75,8 @@ class NewtonSolver:
         ksp = opts.opt("ksp_type")
         pc = opts.opt("pc_type")
         if pc == "btlu":
-            raise NotImplementedError(
-                "pc_type='btlu' (la/blocktri.py) is not ported to "
-                "proximalgalerkin_torch yet (ROADMAP A9)")
+            with self.timer.phase("linear_solve_bt"):
+                return self._bt_direction(x, F)
         if ksp == "preonly" or pc == "lu":
             lag = int(opts.opt("pc_factor_lag", 0) or 0)
             ordering = str(opts.opt("pc_factor_ordering", "auto"))
@@ -120,6 +124,71 @@ class NewtonSolver:
                 if rres <= max(rtol_k * fnorm, atol_k) or not np.isfinite(
                         rres):
                     break
+        return dx
+
+    # --------------------------------------- device block-tridiagonal LU
+
+    def _bt_direction(self, x, F):
+        """Device-resident direct direction (pc_type='btlu'): line-ordered
+        block-tridiagonal LDL on the device (la/blocktri.py), the
+        lattice-problem MUMPS replacement. f32 (or f64) factor + f64
+        iterative refinement against the assembled ELL operator; each
+        refinement pass reads one norm from the host. Refactored every
+        call unless pc_factor_lag keeps the factor across Newton steps and
+        solves (then refactored only when refinement of the stale factor
+        misses ksp tolerance)."""
+        from ..la import blocktri as btm
+        prob = self.problem
+        opts = self.options
+        blocking = prob.line_blocking()
+        ell = prob.ell_matrix
+        with self.timer.phase("bt_assemble"):
+            data64 = prob.ell_data(x)
+        # f64 factor for systems whose equilibrated conditioning defeats
+        # the f32-factor + refinement scheme (multiphase saturated softmax)
+        fdt = btm.factor_dtype(opts.opt("pc_factor_dtype", "f32"))
+        Fact = btm.factorization(
+            blocking, fdt, str(opts.opt("pc_factor_algo", "thomas")),
+            bool(opts.opt("pc_factor_streamed", False)))
+        adt = str(opts.opt("pc_factor_apply_dtype", fdt))
+        biv = str(opts.opt("pc_factor_blockinv", "ns"))
+        lag = int(opts.opt("pc_factor_lag", 0) or 0)
+        b = -F
+        bnorm = float(torch.linalg.norm(b))
+        tol = max(float(opts.opt("ksp_rtol")) * bnorm,
+                  float(opts.opt("ksp_atol")))
+        refine_max = int(opts.opt("pc_factor_refine_max", 20) or 20)
+        monitor = bool(opts.opt("ksp_monitor", False))
+
+        def refine(fact, fresh):
+            """Refine fact.solve against the CURRENT operator; -> (dx, ok).
+            A stale (lagged) factor is accepted only if refinement reaches
+            ksp tolerance; a fresh one returns its best dx regardless
+            (matching _lu_direction's lag contract)."""
+            def on_pass(p, rn2):
+                rank_print(f"      btlu[{'F' if fresh else 's'}] pass {p}: "
+                           f"|r|/|b| {np.sqrt(rn2) / max(bnorm, 1e-300):.2e}")
+
+            with self.timer.phase("bt_solve"):
+                dx, reached, p = btm.refine(
+                    fact.solve, lambda v: ell.spmv(data64, v), b, tol * tol,
+                    refine_max, on_pass=on_pass if monitor else None)
+            # the reference's host loop does not test the residual left by
+            # its last allowed correction
+            return dx, fresh or (bool(reached) and int(p) < refine_max)
+
+        fact = getattr(self, "_lagged_bt", None) if lag else None
+        if fact is not None:
+            dx, ok = refine(fact, fresh=False)
+            if ok:
+                return dx
+        with self.timer.phase("bt_factor"):
+            fact = Fact(blocking, ell, data64, ell.arrays, dtype=fdt,
+                        apply_dtype=adt, blockinv=biv)
+        self.refactors += 1
+        if lag:
+            self._lagged_bt = fact
+        dx, _ = refine(fact, fresh=True)
         return dx
 
     # ------------------------------------------------- lagged/ordered LU
@@ -376,29 +445,36 @@ class NewtonSolver:
         reconstructed from one host read per call."""
         opts = self.options
         prob = self.problem
-        if opts.opt("pc_type") == "btlu":
-            raise NotImplementedError(
-                "fused_newton_btlu (la/blocktri.py) is not ported to "
-                "proximalgalerkin_torch yet (ROADMAP A9)")
-        pc_opts = {k: opts[k] for k in ("ksp_refine_max",) if k in opts}
+        pc_opts = {k: opts[k] for k in ("ksp_refine_max",
+                                        "pc_factor_streamed",
+                                        "pc_factor_dtype",
+                                        "pc_factor_apply_dtype",
+                                        "pc_factor_algo") if k in opts}
         max_it = int(opts.opt("snes_max_it"))
         # snes_fused_chunk bounds one fused call to `chunk` Newton
         # iterations; the host warm-restarts chunks from the returned
-        # iterate
+        # iterate, and the lagged-btlu factor persists across chunks on
+        # the fused function
         chunk = int(opts.opt("snes_fused_chunk", 0) or 0)
         it_per_call = chunk if 0 < chunk < max_it else max_it
-        fused = prob.fused_newton(
-            opts.opt("ksp_type"), opts.opt("pc_type"),
-            str(opts.opt("mat_type", "ell")),
-            linesearch=opts.opt("snes_linesearch_type"),
-            max_it=it_per_call,
-            ksp_max_it=int(opts.opt("ksp_max_it")),
-            schur_field0=opts.opt("pc_schur_field0", None),
-            pc_opts=pc_opts)
         kw = dict(stol=float(opts.opt("snes_stol")),
                   ksp_rtol=float(opts.opt("ksp_rtol")),
                   ksp_atol=float(opts.opt("ksp_atol")),
                   damping=float(opts.opt("snes_linesearch_damping")))
+        if opts.opt("pc_type") == "btlu" and opts.opt("pc_factor_lag", 0):
+            fused = prob.fused_newton_btlu(
+                linesearch=opts.opt("snes_linesearch_type"),
+                max_it=it_per_call, pc_opts=pc_opts)
+            kw["timer"] = self.timer
+        else:
+            fused = prob.fused_newton(
+                opts.opt("ksp_type"), opts.opt("pc_type"),
+                str(opts.opt("mat_type", "ell")),
+                linesearch=opts.opt("snes_linesearch_type"),
+                max_it=it_per_call,
+                ksp_max_it=int(opts.opt("ksp_max_it")),
+                schur_field0=opts.opt("pc_schur_field0", None),
+                pc_opts=pc_opts)
         rtol_o = float(opts.opt("snes_rtol"))
         atol_o = float(opts.opt("snes_atol"))
 
@@ -412,6 +488,7 @@ class NewtonSolver:
                 **kw)
             it, fn, f0, ls_ok, sconv = read(it, fn, f0, ls_ok, sconv)
             it = int(it)
+            self.refactors += getattr(fused, "last_refactors", 0)
             if it_per_call < max_it:
                 # continuation chunks test against the FIRST chunk's f0
                 atol_eff = max(atol_o, rtol_o * f0)
@@ -424,6 +501,7 @@ class NewtonSolver:
                         atol=atol_eff, it_cap=budget, **kw)
                     itc, fn, ls_ok, sconv = read(itc, fn, ls_ok, sconv)
                     it += int(itc)
+                    self.refactors += getattr(fused, "last_refactors", 0)
                     if int(itc) < budget:
                         break
         reason = self._reason(bool(ls_ok), fn, f0, bool(sconv))

@@ -11,10 +11,14 @@ Newton loop (`fused_newton`) run their iterations as la/loop.while_loop:
 the Krylov loops read the host once per chunk of about 64 iterations, a
 refinement pass or a Newton step once each.
 
-Not ported yet (each raises NotImplementedError): the block-tridiagonal
-direct direction pc='btlu' and fused_newton_btlu (ROADMAP A9), the
-block-Schur preconditioners pc='schur'/'schur_mg' (ROADMAP A10, la/schur.py
-and la/gmg.py) and EllSplit (ROADMAP section A, after A10).
+The block-tridiagonal direct direction pc='btlu' (la/blocktri.py) runs in
+both: refactored every Newton step in `fused_newton`, and lagged across
+Newton steps and solves in `fused_newton_btlu`, which assembles the
+Jacobian from an `EllSplit` where a model installs one (multiphase).
+
+Not ported yet (raises NotImplementedError): the block-Schur
+preconditioners pc='schur'/'schur_mg' (ROADMAP A10: section A item 4,
+la/schur.py and la/gmg.py).
 """
 
 from __future__ import annotations
@@ -152,19 +156,34 @@ def _fused_linesearch(linesearch, residual, fsq, x, dx, fnorm, damping):
                     torch.where(keep, g_prev, g_lam), ok, fail)
 
         i0 = torch.zeros((), dtype=torch.int64, device=x.device)
+        # chunk 1: each backtrack is a residual evaluation, and most line
+        # searches accept the full step, so a masked chunk would cost up
+        # to 64 residuals where the loop needs none or a few
         _, lam, _, _, ok, _ = while_loop(
-            cond, body, (i0, lam1, lam0, g_full, ok_full, ~true))
+            cond, body, (i0, lam1, lam0, g_full, ok_full, ~true), chunk=1)
         lam = torch.where(ok_full, lam0, lam)
         return x + lam * dx, ok
     raise ValueError(f"unknown fused linesearch {linesearch!r}")
 
 
 class EllSplit:
-    """Affine/nonlinear Jacobian split for the fused device Newton of the
-    reference (solve/nonlinear.py EllSplit). Not ported yet."""
+    """Affine/nonlinear Jacobian split for the fused device Newton — the
+    device twin of csr_data_override (see jacobian_scipy below): models
+    whose residual is affine except for a small nonlinear block (e.g.
+    multiphase's softmax, multiphase_dolfinx.py:83-90) provide
 
-    def __init__(self, *args, **kwargs):
-        raise _not_ported("EllSplit", "ROADMAP section A, EllSplit")
+      nl_core(x, coeffs, consts, extra) -> (N, K) ELL delta
+      lin_data(coeffs, consts)          -> (N, K) f64 tensor (cached by
+                                           the model)
+      extra: dict of device index tensors nl_core reads.
+
+    fused_newton_btlu then assembles J(x) = lin + nl(x) per iteration
+    instead of re-differentiating all fields through jacfwd."""
+
+    def __init__(self, nl_core, lin_data, extra):
+        self.nl_core = nl_core
+        self.lin_data = lin_data
+        self.extra = dict(extra)
 
 
 class NonlinearProblem:
@@ -255,7 +274,14 @@ class NonlinearProblem:
         return self.ell_matrix.assemble(Ae)
 
     def line_blocking(self):
-        raise _not_ported("LineBlocking (la/blocktri.py)", "ROADMAP A9")
+        """Cached LineBlocking of this problem's ELL pattern (raises
+        ValueError when the dof graph is not line-structured)."""
+        if not hasattr(self, "_line_blocking"):
+            from ..la.blocktri import LineBlocking
+            dof_nodes, _, node_pts = self.nd_ordering_data()
+            self._line_blocking = LineBlocking.build(
+                self.ell_matrix.pattern, node_pts[dof_nodes])
+        return self._line_blocking
 
     def direction_solver(self, ksp: str, pc: str, mat_type: str = "ell",
                          schur_field0: Optional[str] = None,
@@ -283,8 +309,6 @@ class NonlinearProblem:
         Newton: (x, F, coeffs, consts, rtol, atol, maxiter, dx0=None) -> dx
         with J(x) dx = -F."""
         from ..la import krylov as kry
-        if pc == "btlu":
-            raise _not_ported("pc='btlu' (la/blocktri.py)", "ROADMAP A9")
         if pc in ("schur", "schur_mg"):
             raise _not_ported(f"pc={pc!r} (la/schur.py, la/gmg.py)",
                               "ROADMAP A10")
@@ -294,6 +318,10 @@ class NonlinearProblem:
         form = self.form
         ell = self.ell_matrix if mat_type == "ell" else None
         refine_max = int(dict(pc_opts or {}).get("ksp_refine_max", 30))
+        if pc == "btlu":
+            if mat_type != "ell":
+                raise ValueError("pc='btlu' requires mat_type='ell'")
+            bt_direction = self._make_bt_direction(dict(pc_opts or {}))
 
         def direction(x, F, coeffs, consts, rtol, atol, maxiter, dx0=None):
             if mat_type == "ell":
@@ -311,6 +339,8 @@ class NonlinearProblem:
                                                      v[self.bc_idx])
 
             b = -F
+            if pc == "btlu":
+                return bt_direction(data, Av, b, rtol, atol)
             if pc == "jacobi":
                 if mat_type == "ell":
                     d = ell.diagonal(data)
@@ -407,6 +437,32 @@ class NonlinearProblem:
 
         return direction
 
+    def _make_bt_direction(self, pc_opts: Mapping):
+        """The block-tridiagonal direct direction of the fused Newton
+        (pc='btlu' without lag): (data, Av, b, rtol, atol) -> dx. Assemble
+        -> equilibrate -> factor -> solve, then refinement passes against
+        the assembled operator until ksp tolerance, a stall or
+        ksp_refine_max corrections (default 6); one host read a pass. A
+        NaN residual refines on, as the reference's fixed-budget scan
+        does. Thomas or streamed, as in the reference."""
+        from ..la import blocktri as btm
+        blocking = self.line_blocking()
+        fdt = btm.factor_dtype(pc_opts.get("pc_factor_dtype", "f32"))
+        Fact = btm.factorization(
+            blocking, fdt, streamed=bool(pc_opts.get("pc_factor_streamed",
+                                                     False)))
+        passes = int(pc_opts.get("ksp_refine_max", 6))
+        ell = self.ell_matrix
+
+        def direction(data, Av, b, rtol, atol):
+            fact = Fact(blocking, ell, data, ell.arrays, dtype=fdt)
+            stop2 = torch.clamp(rtol * rtol * torch.dot(b, b),
+                                min=atol * atol)
+            return btm.refine(fact.solve, Av, b, stop2, passes,
+                              stop_on_nan=False)[0]
+
+        return direction
+
     def fused_newton(self, ksp: str, pc: str, mat_type: str = "ell",
                      linesearch: str = "none", max_it: int = 100,
                      ksp_max_it: int = 10_000, schur_field0=None,
@@ -479,8 +535,143 @@ class NonlinearProblem:
         self._direction_cache[key] = fn
         return fn
 
-    def fused_newton_btlu(self, *args, **kwargs):
-        raise _not_ported("fused_newton_btlu (la/blocktri.py)", "ROADMAP A9")
+    def fused_newton_btlu(self, linesearch: str = "none", max_it: int = 100,
+                          pc_opts: Optional[Mapping] = None):
+        """Whole-solve Newton with a LAGGED block-tridiagonal direct
+        direction — the multiphase-record architecture.
+
+        The factor (f64 recursion, f32-cast apply by default, see
+        la/blocktri.py) is kept on the returned function across Newton
+        steps AND across calls, so consecutive solves of the LVPP alpha
+        loop reuse it. Each Newton step first refines the carried factor
+        against the CURRENT assembled Jacobian; only when refinement
+        misses ksp tolerance (a stale factor) does it refactor. The Newton
+        loop is la/loop.while_loop with chunk 1 (a masked step would still
+        factor): one host read a Newton step, on which the refactor
+        decision is a host branch; the refinement inside is a device loop
+        read once a pass.
+
+        Returns fn(x0, coeffs, consts, rtol, atol, stol, ksp_rtol,
+        ksp_atol, damping, it_cap, timer) -> (x, it, fnorm, f0, ls_ok,
+        sconv) as device tensors; fn.reset() drops the factor,
+        fn.last_refactors is the refactor count of the last call. With a
+        PhaseTimer, the Jacobian assembly, factor, refinement and line
+        search are timed as 'bt_assemble', 'bt_factor', 'bt_solve' and
+        'linesearch'.
+        """
+        import contextlib
+        pc_opts = dict(pc_opts or {})
+        split = getattr(self, "ell_split", None)
+        key = ("fused_btlu", linesearch, max_it, split is not None,
+               tuple(sorted((k, str(v)) for k, v in pc_opts.items())))
+        if key in self._direction_cache:
+            return self._direction_cache[key]
+
+        from ..la import blocktri as btm
+        form = self.form
+        ell = self.ell_matrix
+        dev = self.device
+        blocking = self.line_blocking()
+        fdt = btm.factor_dtype(pc_opts.get("pc_factor_dtype", "f32"))
+        algo = str(pc_opts.get("pc_factor_algo", "thomas"))
+        if not blocking.fits_dense(8 if fdt == "f64" else 4, algo):
+            raise ValueError("fused lagged btlu requires the dense factor "
+                             "layout to fit LineBlocking.max_bytes at the "
+                             "requested factor dtype "
+                             "(LineBlocking.fits_dense)")
+        adt = str(pc_opts.get("pc_factor_apply_dtype", "f32"))
+        btm._check_apply_dtype(fdt, adt)
+        biv = str(pc_opts.get("pc_factor_blockinv", "ns"))
+        Fact = btm.factorization(blocking, fdt, algo)
+        passes = int(pc_opts.get("ksp_refine_max", 8))
+
+        def fn(x0, coeffs=None, consts=None, rtol=1e-8, atol=1e-50,
+               stol=0.0, ksp_rtol=1e-10, ksp_atol=0.0, damping=1.0,
+               it_cap=None, timer=None):
+            coeffs = dict(coeffs if coeffs is not None else self.coeffs)
+            consts = dict(consts if consts is not None else self.consts)
+            cap = min(max_it if it_cap is None else int(it_cap), max_it)
+            phase = (timer.phase if timer is not None
+                     else lambda name: contextlib.nullcontext())
+            lin_data = None if split is None else split.lin_data(coeffs,
+                                                                 consts)
+
+            def residual(z):
+                return self._bc_residual(
+                    z, form._residual_core(z, coeffs, consts))
+
+            def fsq(z):
+                F = residual(z)
+                return torch.dot(F, F)
+
+            x = self.set_bc(x0)
+            F = residual(x)
+            f0 = torch.linalg.norm(F)
+            stop = torch.clamp(rtol * f0, min=atol)
+            fn.last_refactors = 0
+
+            def cond(s):
+                it, x, F, fnorm, ls_ok, sconv = s
+                return ((fnorm > stop) & torch.isfinite(fnorm) & ~sconv
+                        & (it < cap) & ls_ok)
+
+            def body(s):
+                it, x, F, fnorm, _, _ = s
+                with phase("bt_assemble"):
+                    if split is None:
+                        data = ell.assemble(form._element_matrices_core(
+                            x, coeffs, consts))
+                    else:
+                        data = lin_data + split.nl_core(x, coeffs, consts,
+                                                        split.extra)
+
+                def Av(v):
+                    return ell.spmv(data, v)
+
+                b = -F
+                stop2 = torch.clamp(ksp_rtol * ksp_rtol * torch.dot(b, b),
+                                    min=ksp_atol * ksp_atol)
+                ok = False
+                if fn._fact is not None:
+                    with phase("bt_solve"):
+                        dx, ok_t, _ = btm.refine(fn._fact.solve, Av, b,
+                                                 stop2, passes)
+                        ok = bool(ok_t)
+                if not ok:
+                    with phase("bt_factor"):
+                        fn._fact = Fact(blocking, ell, data, ell.arrays,
+                                        dtype=fdt, apply_dtype=adt,
+                                        blockinv=biv)
+                    fn.last_refactors += 1
+                    # a fresh factor's best dx is accepted regardless
+                    with phase("bt_solve"):
+                        dx = btm.refine(fn._fact.solve, Av, b, stop2,
+                                        passes)[0]
+                with phase("linesearch"):
+                    xn, ls_ok = _fused_linesearch(linesearch, residual, fsq,
+                                                  x, dx, fnorm, damping)
+                    # SNES stol test (||x_new - x|| < stol ||x_new||)
+                    sconv = torch.linalg.norm(xn - x) < stol * torch.clamp(
+                        torch.linalg.norm(xn), min=1e-300)
+                    F = residual(xn)
+                return it + 1, xn, F, torch.linalg.norm(F), ls_ok, sconv
+
+            state = (torch.zeros((), dtype=torch.int64, device=dev), x, F,
+                     f0, torch.ones((), dtype=torch.bool, device=dev),
+                     torch.zeros((), dtype=torch.bool, device=dev))
+            it, x, F, fnorm, ls_ok, sconv = while_loop(cond, body, state,
+                                                       chunk=1)
+            return x, it, fnorm, f0, ls_ok, sconv
+
+        fn._fact = None
+        fn.last_refactors = 0
+
+        def reset():
+            fn._fact = None
+
+        fn.reset = reset
+        self._direction_cache[key] = fn
+        return fn
 
     def jacobian_scipy(self, x, timer=None):
         """Assembled CSR with bc rows/cols zeroed and unit diagonal: the
@@ -495,13 +686,23 @@ class NonlinearProblem:
                  else lambda name: contextlib.nullcontext())
         ell = self.ell_matrix
         pat = ell.pattern
-        with phase("assembly"):
-            Ae = self.form.element_matrices(x, self.coeffs, self.consts)
-        with phase("host_transfer"):
-            Ae = Ae.cpu().numpy()
+        # models whose residual is affine except for a small nonlinear term
+        # (e.g. multiphase's softmax) can install csr_data_override to
+        # produce the unassembled-bc CSR data (host numpy) directly from
+        # cached constant data + a scatter of only the nonlinear block
+        override = getattr(self, "csr_data_override", None)
+        if override is not None:
+            with phase("assembly"):
+                data = np.asarray(override(x, self.coeffs, self.consts))
+        else:
+            with phase("assembly"):
+                Ae = self.form.element_matrices(x, self.coeffs, self.consts)
+            with phase("host_transfer"):
+                Ae = Ae.cpu().numpy()
+            with phase("csr"):
+                data = scatter_add(Ae.reshape(-1).astype(np.float64),
+                                   pat.slot_map.astype(np.int64), pat.nnz)
         with phase("csr"):
-            data = scatter_add(Ae.reshape(-1).astype(np.float64),
-                               pat.slot_map.astype(np.int64), pat.nnz)
             data = data * pat.keep + pat.diag_ones
             N = pat.num_dofs
             # slots are sorted by (row, col): build CSR arrays directly

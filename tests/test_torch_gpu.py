@@ -14,8 +14,10 @@ from proximalgalerkin_torch.models.obstacle_p1 import P1ObstacleSolver
 from proximalgalerkin_torch.ops import dia_cg, mgfused
 from proximalgalerkin_torch.ops.dia_spmv import dia_spmv, dia_spmv_reference
 
-from chip_smoke import (MODELS, dia_cg_system, field_rtol, grids_on,
-                        model_case, p1_operator, rel_field, residual_ratio)
+from chip_smoke import (BTLU_CASES, MODELS, MULTIPHASE_CASES, btlu_case,
+                        dia_cg_system, field_rtol, grids_on, model_case,
+                        multiphase_case, p1_operator, rel_field,
+                        residual_ratio)
 
 pytestmark = pytest.mark.gpu
 
@@ -322,6 +324,29 @@ def test_model_on_card_matches_cpu(cuda, name):
     assert c_card == c_cpu
     for k in f_card:
         assert rel_field(f_card[k], f_cpu[k]) <= field_rtol(name), k
+
+
+@pytest.mark.parametrize("name", list(BTLU_CASES))
+def test_btlu_on_card_matches_cpu(cuda, name):
+    """The gradient-constraint 12^2 P2 LVPP with each btlu option set of
+    tests/test_torch_blocktri.py (Thomas f32, cyclic reduction, streamed,
+    lagged f64 factor / f32 apply) on the card and on the CPU: counts
+    equal, x within 1e-10 relative."""
+    c_card, f_card = btlu_case(name, cuda)
+    c_cpu, f_cpu = btlu_case(name, torch.device("cpu"))
+    assert c_card == c_cpu and c_card["converged"]
+    assert rel_field(f_card["x"], f_cpu["x"]) <= 1e-10
+
+
+@pytest.mark.parametrize("name", list(MULTIPHASE_CASES))
+def test_multiphase_on_card_matches_cpu(cuda, name):
+    """Multiphase at N = 10, two steps, with the default LU and with the
+    fused lagged btlu, on the card and on the CPU: per-step counts equal,
+    u within 1e-10 relative."""
+    c_card, f_card = multiphase_case(name, cuda)
+    c_cpu, f_cpu = multiphase_case(name, torch.device("cpu"))
+    assert c_card == c_cpu
+    assert rel_field(f_card["u"], f_cpu["u"]) <= 1e-10
 
 
 def test_fd_obstacle_on_card_matches_cpu(cuda):

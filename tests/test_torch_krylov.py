@@ -295,19 +295,25 @@ def test_equilibrated_direction_thermoforming():
 
 
 def test_unported_solvers_raise():
+    """The block-Schur preconditioners (A10) still raise; the A9 entry
+    points (pc_type='btlu', fused_newton_btlu, EllSplit) no longer do: a
+    btlu direction solves the system and the Newton solve converges."""
+    import scipy.sparse.linalg as spla
     from proximalgalerkin_torch.core.config import SolverOptions
     from proximalgalerkin_torch.solve import NewtonSolver
     from proximalgalerkin_torch.solve.nonlinear import EllSplit
     _, tp = _obstacle_pair(4, 1)
     p = tp.problem
-    for pc, item in (("btlu", "A9"), ("schur", "A10"), ("schur_mg", "A10")):
-        with pytest.raises(NotImplementedError, match=item):
+    for pc in ("schur", "schur_mg"):
+        with pytest.raises(NotImplementedError, match="A10"):
             p.direction_solver("minres", pc)
-    with pytest.raises(NotImplementedError, match="A9"):
-        p.fused_newton_btlu()
-    with pytest.raises(NotImplementedError, match="EllSplit"):
-        EllSplit(None, None, {})
+    assert callable(p.fused_newton_btlu())
+    assert EllSplit(None, None, {}).extra == {}
     p, x, F = _first_direction(tp, "port")
-    with pytest.raises(NotImplementedError, match="A9"):
-        NewtonSolver(p, SolverOptions({"ksp_type": "minres",
-                                       "pc_type": "btlu"})).solve(x)
+    dx_lu = spla.splu(p.jacobian_scipy(x).tocsc()).solve(-F.numpy())
+    dx = p.direction_solver("minres", "btlu")(x, F, p.coeffs, p.consts,
+                                              1e-12, 0.0, 100).numpy()
+    assert np.linalg.norm(dx - dx_lu) / np.linalg.norm(dx_lu) < 1e-9
+    assert NewtonSolver(p, SolverOptions({"ksp_type": "minres",
+                                          "pc_type": "btlu"})).solve(
+        x).converged
