@@ -9,15 +9,19 @@ counterpart is easy to find:
 
   core/        options (SolverOptions), SNES reasons, monitors, PhaseTimer
   elements/, mesh/, spaces/, native/, io/   host numpy setup, copied as is
-               (mesh/unstructured.py: the disk meshes; io/vtu.py: output)
+               (mesh/unstructured.py: the disk meshes; manifolds.py: the
+               Möbius strip; parametric.py: the ball and half-disk /
+               half-sphere specimens; io/vtu.py: output)
   forms/       the constraint-to-latent maps (exp, softmax, expm2, tanhm...)
   assembly/    VolumeForm: residual, jvp Jacobian action, jacfwd element
                matrices and diagonal, functionals (torch.func)
   la/          ELL and DIA operators, Krylov solvers (krylov.py) on
                device-side loops (loop.py), host SuperLU (direct.py),
-               nested-dissection ordering (ordering.py) and the device
+               nested-dissection ordering (ordering.py), the device
                block-tridiagonal direct solver (blocktri.py, pc_type
-               'btlu')
+               'btlu') and the block-Schur preconditioners (schur.py,
+               pc_type 'schur'/'schur_mg', on the lattice multigrid of
+               gmg.py)
   solve/       NonlinearProblem, NewtonSolver (SNES semantics), LVPPSolver
   ops/         lattice multigrid (mg.py) and the kernel wrappers: fused
                MG-PCG (mgfused.py, CUDA source csrc/mgfused.cu), DIA SpMV
@@ -29,8 +33,9 @@ counterpart is easy to find:
                and the example models on the general stack
                (intersecting, eigenvalue_constraints, thermoforming and
                thermoforming_compare, gradient_constraint, fracture,
-               multiphase)
-  utils/       LVPP checkpoints (the reference's file format)
+               multiphase, eikonal, monge_ampere)
+  utils/       LVPP checkpoints (the reference's file format), point
+               evaluation (pointeval.py)
   cli.py       the `obstacle`, `obstacle-fd`, model and `bench`
                subcommands
 

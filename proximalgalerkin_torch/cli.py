@@ -13,17 +13,22 @@
         [--alpha_scheme doubling] [--warm_start] [-s 1e-8]
     eigenvalue [-N 100] [--degree 3]
     intersecting [--cells 1001]
+    eikonal [--ns 48] [--nt 6] [--geometry mobius|star|ball] [--res 0.08]
+    monge-ampere [--kmin 3] [--kmax 14]
     bench -n 1024 [--pc {mg,jacobi}] [--fused]
 
 The model subcommands are the reference CLI's of the same names, with its
 flags, defaults and printed lines. `--opt KEY=VALUE` (repeatable, before
 the subcommand) passes PETSc-style solver options to the models that take
 them (fracture, multiphase, thermoforming, gradient-constraint,
-eigenvalue), with the reference's coercion of VALUE (int, float,
+eigenvalue, eikonal), with the reference's coercion of VALUE (int, float,
 true/false, else a string): e.g. `--opt pc_type=btlu` solves each Newton
 system with the device block-tridiagonal factor, and `--opt snes_fused=true
 --opt pc_type=btlu --opt pc_factor_lag=1 --opt pc_factor_dtype=f64` runs
-multiphase through the fused lagged-btlu Newton.
+multiphase through the fused lagged-btlu Newton; `--opt ksp_type=minres`
+runs eikonal through block-Schur MINRES, and `--opt ksp_type=minres --opt
+pc_type=schur_mg --opt ksp_precision=mixed --opt pc_schur_field0=psi`
+gradient-constraint through the lattice-multigrid Schur preconditioner.
 `--n-devices` (the dof-partitioned multi-device paths of obstacle and
 fracture) is not ported yet (ROADMAP A12) and is refused.
 
@@ -225,6 +230,22 @@ def _add_models(sub):
     p.add_argument("--cells", type=int, default=1001)
     _add_device(p)
 
+    p = sub.add_parser("eikonal", help="Example 09 Mobius eikonal")
+    p.add_argument("--ns", type=int, default=48)
+    p.add_argument("--nt", type=int, default=6)
+    p.add_argument("--geometry", choices=["mobius", "star", "ball"],
+                   default="mobius",
+                   help="mobius = ex40 run of record; star / ball = the "
+                        "ex40p planar-star and solid-ball variants")
+    p.add_argument("--res", type=float, default=0.08,
+                   help="star-mesh resolution")
+    _add_device(p)
+
+    p = sub.add_parser("monge-ampere", help="Example 10")
+    p.add_argument("--kmin", type=int, default=3)
+    p.add_argument("--kmax", type=int, default=14)
+    _add_device(p)
+
 
 def _coerce(v: str):
     """The reference CLI's coercion of an --opt value."""
@@ -298,6 +319,22 @@ def _run_model(args, opts):
         r = solve_intersecting(n_cells=args.cells, device=dev)
         print(f"num_lvpp_iterations={r.lvpp_iterations}")
         print(f"num_newton_iterations={r.newton_iterations}")
+    elif args.cmd == "eikonal":
+        from .models.eikonal import solve_eikonal
+        mesh = None
+        if args.geometry == "star":
+            from .mesh.unstructured import create_star_mesh
+            mesh = create_star_mesh(args.res)
+        elif args.geometry == "ball":
+            from .mesh.parametric import create_ball_mesh
+            mesh = create_ball_mesh(res=max(args.res, 0.15))
+        r = solve_eikonal(mesh=mesh, ns=args.ns, nt=args.nt,
+                          solver_options=opts, device=dev)
+        print(f"LVPP {r.lvpp_iterations} Newton {r.total_newton}")
+    elif args.cmd == "monge-ampere":
+        from .models.monge_ampere import p_refinement_sweep
+        r = p_refinement_sweep(args.kmin, args.kmax, device=dev)
+        print("Errors", r.errors)
 
 
 def main(argv=None):

@@ -10,7 +10,8 @@ caller commits explicitly.
 This host-loop driver calls the problem's residual/Jacobian on the device
 and supports pluggable linear solvers: host sparse LU ("preonly"+"lu", the
 MUMPS stand-in: element matrices on the device, SuperLU on the host) or
-device Krylov (cg/minres/gmres/bicgstab with Jacobi preconditioning). With
+device Krylov (cg/minres/gmres/bicgstab with Jacobi preconditioning, or
+MINRES with the block-Schur preconditioners of la/schur.py). With
 linesearch 'none' one Newton step reads the host once for its convergence
 tests; `snes_fused` runs the whole Newton loop on the device.
 pc_type='btlu' solves each Newton system with the device block-tridiagonal
@@ -32,6 +33,12 @@ from ..core.logging import Monitor, PhaseTimer, rank_print
 from ..core.reasons import ConvergedReason, NotConvergedError
 from ..la.direct import LUFactorization
 from .nonlinear import NonlinearProblem
+
+# the options a device direction takes from the solver's options: the
+# block-Schur preconditioner's interval and cycle knobs (la/schur.py) and
+# the mixed-precision refinement budget
+DIRECTION_OPTS = ("pc_schur_cheb_steps", "pc_schur_power_iters",
+              "pc_schur_lmin_ratio", "pc_mg_nu", "ksp_refine_max")
 
 
 @dataclass
@@ -91,7 +98,7 @@ class NewtonSolver:
                 else:
                     dx = self._lu_direction(x, F, lag, ordering)
                 return self._to_device(dx, F)
-        pc_opts = {k: opts[k] for k in ("ksp_refine_max",) if k in opts}
+        pc_opts = {k: opts[k] for k in DIRECTION_OPTS if k in opts}
         step = self.problem.direction_solver(
             ksp, pc, str(opts.opt("mat_type", "ell")),
             schur_field0=opts.opt("pc_schur_field0", None),
@@ -445,7 +452,7 @@ class NewtonSolver:
         reconstructed from one host read per call."""
         opts = self.options
         prob = self.problem
-        pc_opts = {k: opts[k] for k in ("ksp_refine_max",
+        pc_opts = {k: opts[k] for k in (*DIRECTION_OPTS,
                                         "pc_factor_streamed",
                                         "pc_factor_dtype",
                                         "pc_factor_apply_dtype",

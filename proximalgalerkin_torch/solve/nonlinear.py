@@ -16,9 +16,10 @@ both: refactored every Newton step in `fused_newton`, and lagged across
 Newton steps and solves in `fused_newton_btlu`, which assembles the
 Jacobian from an `EllSplit` where a model installs one (multiphase).
 
-Not ported yet (raises NotImplementedError): the block-Schur
-preconditioners pc='schur'/'schur_mg' (ROADMAP A10: section A item 4,
-la/schur.py and la/gmg.py).
+The block-Schur preconditioners pc='schur' (Chebyshev S-solve) and
+pc='schur_mg' (lattice V-cycle S-solve) of la/schur.py run under MINRES
+on the equilibrated ELL system, in double or precision='mixed' (an f32
+inner MINRES inside f64 iterative refinement).
 """
 
 from __future__ import annotations
@@ -34,11 +35,6 @@ from ..la.loop import while_loop
 from ..spaces.space import DirichletBC
 
 f32 = torch.float32
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to proximalgalerkin_torch yet ({item})")
 
 
 def _refined(solve_lo, Av, b, rtol, atol, max_passes, dx0=None):
@@ -292,8 +288,11 @@ class NonlinearProblem:
         J(x) dx = -F on the device. mat_type 'ell' assembles the Jacobian
         once into an ELL matrix (cheap SpMV per Krylov iteration);
         'matfree' re-applies the jvp of the residual each iteration.
-        precision='mixed' (ell + jacobi only) runs the equilibrated inner
-        Krylov in f32 wrapped in f64 iterative refinement."""
+        precision='mixed' (ell + jacobi, schur or schur_mg) runs the
+        equilibrated inner Krylov in f32 wrapped in f64 iterative
+        refinement. pc='schur'/'schur_mg' (ell + minres) applies the
+        block-Schur preconditioner of la/schur.py with block0 =
+        `schur_field0`."""
         key = (ksp, pc, mat_type, schur_field0, precision,
                tuple(sorted((pc_opts or {}).items())))
         if key not in self._direction_cache:
@@ -309,19 +308,25 @@ class NonlinearProblem:
         Newton: (x, F, coeffs, consts, rtol, atol, maxiter, dx0=None) -> dx
         with J(x) dx = -F."""
         from ..la import krylov as kry
-        if pc in ("schur", "schur_mg"):
-            raise _not_ported(f"pc={pc!r} (la/schur.py, la/gmg.py)",
-                              "ROADMAP A10")
-        if precision == "mixed" and (mat_type != "ell" or pc != "jacobi"):
+        if precision == "mixed" and (mat_type != "ell"
+                                     or pc not in ("jacobi", "schur",
+                                                   "schur_mg")):
             raise ValueError("precision='mixed' requires mat_type='ell' "
-                             "and pc='jacobi'")
+                             "and pc in ('jacobi', 'schur', 'schur_mg')")
         form = self.form
         ell = self.ell_matrix if mat_type == "ell" else None
-        refine_max = int(dict(pc_opts or {}).get("ksp_refine_max", 30))
+        pc_opts = dict(pc_opts or {})
+        refine_max = int(pc_opts.get("ksp_refine_max", 30))
         if pc == "btlu":
             if mat_type != "ell":
                 raise ValueError("pc='btlu' requires mat_type='ell'")
-            bt_direction = self._make_bt_direction(dict(pc_opts or {}))
+            bt_direction = self._make_bt_direction(pc_opts)
+        if pc in ("schur", "schur_mg"):
+            if mat_type != "ell" or ksp != "minres":
+                raise ValueError(f"pc={pc!r} requires mat_type='ell' and "
+                                 "ksp='minres'")
+            schur_direction = self._make_schur_direction(
+                pc, schur_field0, precision, pc_opts)
 
         def direction(x, F, coeffs, consts, rtol, atol, maxiter, dx0=None):
             if mat_type == "ell":
@@ -341,6 +346,9 @@ class NonlinearProblem:
             b = -F
             if pc == "btlu":
                 return bt_direction(data, Av, b, rtol, atol)
+            if pc in ("schur", "schur_mg"):
+                return schur_direction(data, Av, b, rtol, atol, maxiter,
+                                       dx0)
             if pc == "jacobi":
                 if mat_type == "ell":
                     d = ell.diagonal(data)
@@ -434,6 +442,105 @@ class NonlinearProblem:
                 return kry.bicgstab(Av, b, x0=dx0, tol=rtol, atol=atol,
                                     maxiter=maxiter)
             raise ValueError(f"unknown ksp_type {ksp!r}")
+
+        return direction
+
+    def _make_schur_direction(self, pc: str, schur_field0, precision: str,
+                              pc_opts: Mapping):
+        """The block-Schur MINRES direction (pc='schur'/'schur_mg'):
+        (data, Av, b, rtol, atol, maxiter, dx0) -> dx. Block0 is
+        `schur_field0` (comma-separated names form one block; default the
+        first field). The system is equilibrated first: per dof,
+        S A S with S = |diag|^-1/2, for 'schur'; per field, one scalar a
+        field with the bc rows left at 1, for 'schur_mg' (a per-dof scale
+        would flatten the P2 vertex/edge diagonal into a checkerboard
+        coefficient the V-cycle cannot smooth). precision='mixed' runs
+        MINRES in f32 to 1e-6 on the f32 preconditioner, inside f64
+        iterative refinement (ksp_refine_max passes, default 30)."""
+        from ..la import krylov as kry
+        from ..la.schur import make_schur_mg_pc, make_schur_pc
+        space, dev, dtype = self.space, self.device, self.form.dtype
+        ell = self.ell_matrix
+        f0 = schur_field0 or space.names[0]
+        f0_names = [n.strip() for n in str(f0).split(",")]
+        m0_np = np.zeros(space.num_dofs)
+        for name in f0_names:
+            m0_np[space.slice_of(name)] = 1.0
+        bc1_np = np.zeros(space.num_dofs)
+        bci = self._bc_idx_host
+        bc1_np[bci] = 1.0 - m0_np[bci]
+        m0 = torch.as_tensor(m0_np, dtype=dtype, device=dev)
+        bc1 = torch.as_tensor(bc1_np, dtype=dtype, device=dev)
+        schur_kw = dict(
+            cheb_steps=int(pc_opts.get("pc_schur_cheb_steps", 4)),
+            power_iters=int(pc_opts.get("pc_schur_power_iters", 10)),
+            lmin_ratio=float(pc_opts.get("pc_schur_lmin_ratio", 30.0)))
+        if pc == "schur_mg":
+            # the lattice geometry of the (single, scalar) block1 field:
+            # its dofs must form a complete 2D lattice
+            from ..la.gmg import lattice_map, mg_levels_for
+            f1_names = [n for n in space.names if n not in f0_names]
+            if len(f1_names) != 1 or \
+                    space.spaces[f1_names[0]].value_size != 1:
+                raise ValueError("pc='schur_mg' needs exactly one scalar "
+                                 "block1 field")
+            f1 = f1_names[0]
+            perm_loc, grid_shape = lattice_map(space.spaces[f1].dof_points)
+            perm_np = space.offsets[f1] + perm_loc
+            bc_set = np.zeros(space.num_dofs, dtype=bool)
+            bc_set[bci] = True
+            perm = torch.as_tensor(perm_np, device=dev)
+            free = torch.as_tensor((~bc_set[perm_np]).reshape(grid_shape),
+                                   device=dev)
+            levels = mg_levels_for(min(grid_shape))
+            nu = int(pc_opts.get("pc_mg_nu", 2))
+            fmasks = []
+            for name in space.names:
+                fm = np.zeros(space.num_dofs)
+                fm[space.slice_of(name)] = 1.0
+                fmasks.append(torch.as_tensor(fm, dtype=dtype, device=dev))
+
+        def build_pc(d, m0_t, bc1_t):
+            if pc == "schur":
+                return make_schur_pc(ell, d, m0_t, bc1_t, **schur_kw)
+            return make_schur_mg_pc(ell, d, m0_t, bc1_t, perm, grid_shape,
+                                    free, levels, nu=nu)
+
+        refine_max = int(pc_opts.get("ksp_refine_max", 30))
+        cols = ell.arrays["ell_cols"]
+
+        def direction(data, Av, b, rtol, atol, maxiter, dx0=None):
+            d = ell.diagonal(data)
+            if pc == "schur_mg":
+                s = torch.zeros_like(d)
+                for fm in fmasks:
+                    cnt = torch.clamp(torch.sum(fm), min=1.0)
+                    mean_d = torch.sum(torch.abs(d) * fm) / cnt
+                    s = s + fm / torch.sqrt(torch.clamp(mean_d, min=1e-300))
+                # bc rows stay identity in the scaled system (the +2 bc1
+                # Schur correction assumes a unit bc diagonal)
+                s = s.index_fill(0, self.bc_idx, 1.0)
+            else:
+                s = torch.where(torch.abs(d) > 1e-300,
+                                1.0 / torch.sqrt(torch.abs(d)), 1.0)
+            data_s = s[:, None] * data * s[cols]
+            if precision == "mixed":
+                data32 = data_s.to(f32)
+                Minv32 = build_pc(data32, m0.to(f32), bc1.to(f32))
+
+                def solve_lo(r64):
+                    y = kry.minres(lambda v: ell.spmv(data32, v),
+                                   (s * r64).to(f32), tol=1e-6,
+                                   maxiter=maxiter, Minv=Minv32)
+                    return s * y.to(s.dtype)
+
+                return _refined(solve_lo, Av, b, rtol, atol, refine_max,
+                                dx0=dx0)
+            Minv = build_pc(data_s, m0, bc1)
+            y0 = None if dx0 is None else dx0 / s
+            y = kry.minres(lambda v: ell.spmv(data_s, v), s * b, x0=y0,
+                           tol=rtol, atol=atol, maxiter=maxiter, Minv=Minv)
+            return s * y
 
         return direction
 

@@ -14,10 +14,10 @@ from proximalgalerkin_torch.models.obstacle_p1 import P1ObstacleSolver
 from proximalgalerkin_torch.ops import dia_cg, mgfused
 from proximalgalerkin_torch.ops.dia_spmv import dia_spmv, dia_spmv_reference
 
-from chip_smoke import (BTLU_CASES, MODELS, MULTIPHASE_CASES, btlu_case,
-                        dia_cg_system, field_rtol, grids_on, model_case,
-                        multiphase_case, p1_operator, rel_field,
-                        residual_ratio)
+from chip_smoke import (BTLU_CASES, MODELS, MULTIPHASE_CASES, SCHUR_CASES,
+                        btlu_case, dia_cg_system, field_rtol, grids_on,
+                        model_case, multiphase_case, p1_operator, rel_field,
+                        residual_ratio, schur_case)
 
 pytestmark = pytest.mark.gpu
 
@@ -347,6 +347,21 @@ def test_multiphase_on_card_matches_cpu(cuda, name):
     c_cpu, f_cpu = multiphase_case(name, torch.device("cpu"))
     assert c_card == c_cpu
     assert rel_field(f_card["u"], f_cpu["u"]) <= 1e-10
+
+
+@pytest.mark.parametrize("name", list(SCHUR_CASES))
+def test_schur_on_card_matches_cpu(cuda, name):
+    """Phase 12 (i)'s cases on the card and on the CPU: a lattice
+    V-cycle, the eikonal 12x3 with LU and Schur-MINRES and the star, the
+    first LVPP step of gradient constraint 8^2 P2 with the fused Newton
+    and schur and its first direction with schur_mg in double and mixed
+    precision, Monge–Ampère k = 3, 4: counts equal, fields within
+    SCHUR_CASES[name] relative."""
+    c_card, f_card = schur_case(name, cuda)
+    c_cpu, f_cpu = schur_case(name, torch.device("cpu"))
+    assert c_card == c_cpu
+    for k in f_card:
+        assert rel_field(f_card[k], f_cpu[k]) <= SCHUR_CASES[name], k
 
 
 def test_fd_obstacle_on_card_matches_cpu(cuda):

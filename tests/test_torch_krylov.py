@@ -295,22 +295,33 @@ def test_equilibrated_direction_thermoforming():
 
 
 def test_unported_solvers_raise():
-    """The block-Schur preconditioners (A10) still raise; the A9 entry
-    points (pc_type='btlu', fused_newton_btlu, EllSplit) no longer do: a
-    btlu direction solves the system and the Newton solve converges."""
+    """No Newton direction is left unported: the block-Schur
+    preconditioners (A10) and the A9 entry points (pc_type='btlu',
+    fused_newton_btlu, EllSplit) run — a schur, schur_mg or btlu
+    direction solves the system and the Newton solve converges — and the
+    block-Schur directions refuse what the reference refuses, with its
+    messages."""
     import scipy.sparse.linalg as spla
     from proximalgalerkin_torch.core.config import SolverOptions
     from proximalgalerkin_torch.solve import NewtonSolver
     from proximalgalerkin_torch.solve.nonlinear import EllSplit
-    _, tp = _obstacle_pair(4, 1)
+    rp, tp = _obstacle_pair(4, 1)
+    for prob in (rp.problem, tp.problem):
+        with pytest.raises(ValueError, match="requires mat_type='ell' and "
+                                             "ksp='minres'"):
+            prob.direction_solver("cg", "schur")
+        with pytest.raises(ValueError, match="one scalar block1 field"):
+            prob.direction_solver("minres", "schur_mg",
+                                  schur_field0="u, psi")
     p = tp.problem
-    for pc in ("schur", "schur_mg"):
-        with pytest.raises(NotImplementedError, match="A10"):
-            p.direction_solver("minres", pc)
     assert callable(p.fused_newton_btlu())
     assert EllSplit(None, None, {}).extra == {}
     p, x, F = _first_direction(tp, "port")
     dx_lu = spla.splu(p.jacobian_scipy(x).tocsc()).solve(-F.numpy())
+    for pc in ("schur", "schur_mg"):
+        dx = p.direction_solver("minres", pc, schur_field0="psi")(
+            x, F, p.coeffs, p.consts, 1e-12, 0.0, 2000).numpy()
+        assert np.linalg.norm(dx - dx_lu) / np.linalg.norm(dx_lu) < 1e-9
     dx = p.direction_solver("minres", "btlu")(x, F, p.coeffs, p.consts,
                                               1e-12, 0.0, 100).numpy()
     assert np.linalg.norm(dx - dx_lu) / np.linalg.norm(dx_lu) < 1e-9
