@@ -9,7 +9,9 @@
                                        # phase 12 (iv) at four sizes, the
                                        # first LVPP step of the 200^2
                                        # gradient constraint (schur_mg),
-                                       # the matrix-free eikonal (SIZES)
+                                       # the matrix-free eikonal, the
+                                       # whole res 0.06 Signorini
+                                       # trajectory (SIZES)
     python3 chip_smoke.py --record KEY # one MULTIPHASE_RECORDS run, as a
                                        # JSON line (phase 11 (iv)'s child)
     python3 chip_smoke.py --cpu-cases GROUP OUT
@@ -120,7 +122,27 @@ Phases, each printing its own lines; any failure exits non-zero:
    element matrices, preconditioner builds and MINRES, its PhaseTimer
    report, peak device memory, and zero launches of the port's CUDA
    kernels;
-13. a JSON line of the kernels, then the JSON status line.
+13. Signorini contact (spaces/trace.py, assembly/facets.py,
+   solve/composite.py, models/signorini.py), the bound-constrained
+   baselines (solve/optimization.py, solve/vi.py, models/obstacle_qp.py),
+   utils/profiling.py and bench --mode fd|stream, as torch ops on the
+   card with host SuperLU: (i) the smallest case of each new CPU parity
+   test on the card and on the CPU (Signorini half-disk res 0.06 and
+   half-sphere res 0.16, compare_all on the 12^2 rectangle): counts
+   equal, fields within 1e-10 relative, beside phase 11 (iv)'s child;
+   (ii) the records (RESULTS.md:160-162): the half-disk at res 0.04
+   pressed by 0.10, 0.15 and 0.20, the half-sphere at res 0.12, the five
+   solvers on the disk at res 0.1, their counts equal to the JAX
+   package's CPU counts pinned here and the reference tests' checks;
+   (iii) the half-sphere at res 0.06 (13,883 cells, 8,317 dofs), its
+   first SIGNORINI_WIDTH_STEPS LVPP steps, counts pinned likewise; each
+   with its seconds, PhaseTimer shares, peak device memory and zero
+   launches of the port's CUDA kernels; (iv) one Signorini Newton step
+   inside utils.profiling.device_trace with an annotate region (the
+   trace file, the region and the card's kernels in it), then `bench
+   --mode stream` and `bench --mode fd -n 1024` in a child each (the FD
+   counts equal phase 8's);
+14. a JSON line of the kernels, then the JSON status line.
 
 Lines starting "--" give the time into the run at which each group of
 phases ended.
@@ -256,24 +278,37 @@ def per_call_ms(fn, calls: int = 50, reps: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, names, calls: int = 50) -> dict:
+def device_ms(fn, names, calls: int = 50, windows: int = 3) -> dict:
     """Device time per launch in ms of each kernel whose name holds one of
     `names`, from torch.profiler over `calls` calls of fn (after a
-    warm-up call). Fails if the profiler saw no launch of one of them."""
+    warm-up call). A profiler window that records none of the device's
+    activity happens now and then on an H100 (once in a smoke run, just
+    after another window had seen every kernel); such a window is taken
+    again, up to `windows` in all. Fails if none saw a launch of each."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
+    for attempt in range(windows):
+        before = read_counters()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        hits = {name: [e for e in events
+                       if name in e.key and e.device_time_total > 0]
+                for name in names}
+        if all(sum(e.count for e in h) > 0 for h in hits.values()):
+            break
+        print(f"  profiler window {attempt + 1} of {windows} saw "
+              f"{[n for n, h in hits.items() if not h]} nowhere on the "
+              f"device; the port's launches in it: "
+              f"{counters_since(before)}", flush=True)
     out = {}
-    for name in names:
-        hits = [e for e in events if name in e.key and e.device_time_total > 0]
-        count = sum(e.count for e in hits)
+    for name, h in hits.items():
+        count = sum(e.count for e in h)
         check(count > 0, f"the profiler saw {name} on the device")
-        out[name] = sum(e.device_time_total for e in hits) / count / 1e3
+        out[name] = sum(e.device_time_total for e in h) / count / 1e3
     return out
 
 
@@ -283,15 +318,24 @@ def busy_profile(fn):
     union of the device intervals the profiler saw."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = fn()
+    for attempt in range(3):
+        # a window that recorded no device activity at all is taken again
+        # (device_ms: it happens now and then on an H100)
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+        before = read_counters()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+        if spans:
+            break
+        print(f"  profiler window {attempt + 1} of 3 saw no device "
+              f"activity; the port's launches in it: "
+              f"{counters_since(before)}", flush=True)
     busy, end = 0.0, float("-inf")
     for a, b in spans:
         if b > end:
@@ -727,6 +771,11 @@ def read_counters() -> dict:
             "dia_spmv": dia_spmv.dia_spmv.launches,
             "dia_cg": dia_cg.solve.launches,
             "dia_cg_replays": dia_cg.solve.replays}
+
+
+def counters_since(before: dict) -> dict:
+    """The port's launches since read_counters() gave `before`."""
+    return {k: v - before[k] for k, v in read_counters().items()}
 
 
 class InnerTimer:
@@ -1925,12 +1974,7 @@ def phase_schur(dev):
           "block-Schur direction", flush=True)
     from proximalgalerkin_torch.mesh.parametric import create_ball_mesh
     from proximalgalerkin_torch.mesh.unstructured import create_star_mesh
-    from proximalgalerkin_torch.models import gradient_constraint
-    from proximalgalerkin_torch.models.eikonal import solve_eikonal
     from proximalgalerkin_torch.models.monge_ampere import p_refinement_sweep
-
-    def eik_counts(r):
-        return {"lvpp": r.lvpp_iterations, "newton": r.newton_iterations}
 
     # (ii) the eikonal records
     for title, key, kw in (
@@ -1941,10 +1985,7 @@ def phase_schur(dev):
              {"mesh": create_star_mesh(0.08)}),
             ("eikonal (ii) ball res 0.3, LU", "eikonal_ball_0.3",
              {"mesh": create_ball_mesh(res=0.3)})):
-        schur_record(dev, title, lambda tm, kw=kw: solve_eikonal(
-            ns=48, nt=6, verbose=False, device=dev, timer=tm, **kw),
-            eik_counts, REFERENCE_COUNTS[key],
-            eikonal_checks(key.split("_")[1]))
+        eikonal_record(dev, title, key, kw)
 
     # (iii) the Monge–Ampère p-sweep
     def ma_checks(s):
@@ -1962,6 +2003,17 @@ def phase_schur(dev):
 
     # (iv) the 200^2 gradient constraint's first Newton step
     first_step_record(dev, 200)
+
+
+def eikonal_record(dev, title: str, key: str, kw: dict):
+    """One eikonal record (Möbius 48x6 unless kw has a mesh) under
+    schur_record, its counts held to REFERENCE_COUNTS[key] and the
+    reference tests' checks."""
+    from proximalgalerkin_torch.models.eikonal import solve_eikonal
+    schur_record(dev, title, lambda tm: solve_eikonal(
+        ns=48, nt=6, verbose=False, device=dev, timer=tm, **kw),
+        lambda r: {"lvpp": r.lvpp_iterations, "newton": r.newton_iterations},
+        REFERENCE_COUNTS[key], eikonal_checks(key.split("_")[1]))
 
 
 def first_step_record(dev, N: int, refine_max=None):
@@ -1992,6 +2044,292 @@ def first_step_record(dev, N: int, refine_max=None):
         GRADIENT_FIRST_STEP, checks)
 
 
+# Phase 13: Signorini contact (spaces/trace.py, assembly/facets.py,
+# solve/composite.py, models/signorini.py), the bound-constrained
+# baselines (solve/optimization.py, solve/vi.py, models/obstacle_qp.py),
+# utils/profiling.py and bench --mode fd|stream.
+# (i): the smallest case of each new CPU parity test
+CONTACT_CASES = ("signorini_2d", "signorini_3d", "compare_all")
+# The JAX package's CPU counts at the records (RESULTS.md:160-162), from
+# scripts/jax_reference_records.py sig2d_0.10, sig2d_0.15, sig2d_0.20,
+# sig3d and compare_all: the half-disk at res 0.04 pressed by 0.10, 0.15
+# and 0.20, the half-sphere at res 0.12, the five solvers on the disk at
+# res 0.1 (tol 1e-4)
+REFERENCE_COUNTS["signorini_2d_0.10"] = {"lvpp": 6,
+                                         "newton": [7, 3, 1, 1, 1, 1]}
+REFERENCE_COUNTS["signorini_2d_0.15"] = {"lvpp": 7,
+                                         "newton": [11, 3, 1, 1, 1, 1, 1]}
+REFERENCE_COUNTS["signorini_2d_0.20"] = {
+    "lvpp": 9, "newton": [7, 2, 1, 1, 1, 1, 1, 1, 1]}
+REFERENCE_COUNTS["signorini_3d_0.12"] = {
+    "lvpp": 10, "newton": [6, 3, 2, 1, 1, 1, 1, 1, 1, 1]}
+REFERENCE_COUNTS["compare_all"] = {
+    "Galahad (TRB)": 6, "LVPP (P1)": 21, "LVPP (P2)": 27,
+    "IPOPT (w. Hessian)": 140, "IPOPT (no Hessian)": 140, "SNES-VI": 5}
+# (iii) the width reading: the half-sphere at res 0.06 (13,883 cells,
+# 8,317 dofs) cut to its first SIGNORINI_WIDTH_STEPS LVPP steps; the JAX
+# package's CPU run (sig3d_006) took 27.8 s for them, and its whole
+# trajectory did not end within 300 s. `--sizes signorini_width` runs the
+# whole trajectory.
+SIGNORINI_WIDTH_STEPS = 5
+REFERENCE_COUNTS["signorini_3d_0.06"] = {"lvpp": 5,
+                                         "newton": [5, 3, 2, 1, 1]}
+# (iv) bench --mode fd -n 1024 is phase 8's solve: its counts
+FD_1025_COUNTS = {"outer": 14, "newton": 23}
+
+
+def contact_case(name: str, dev):
+    """The smallest case of each new parity test
+    (tests/test_torch_signorini.py, _compare_solvers.py) on dev: (counts,
+    fields as host arrays). compare_all's fields leave out the interior
+    point without the Hessian, which stops at its cap of 20 steps a
+    barrier level mid-descent, where the last bits of the QP operators
+    move its iterate (tests/test_torch_compare_solvers.py)."""
+    from proximalgalerkin_torch.mesh import rectangle_mesh
+    from proximalgalerkin_torch.mesh.parametric import create_half_sphere
+    from proximalgalerkin_torch.models.obstacle_qp import compare_all
+    from proximalgalerkin_torch.models.signorini import solve_signorini
+    if name.startswith("signorini"):
+        kw = (dict(res=0.06) if name == "signorini_2d"
+              else dict(tagged=create_half_sphere(res=0.16)))
+        r = solve_signorini(disp=-0.10, verbose=False, max_iterations=20,
+                            device=dev, **kw)
+        return ({"lvpp": r.lvpp_iterations, "newton": r.newton_iterations,
+                 "converged": r.converged},
+                {"u": r.u, "psi": r.psi,
+                 "penetrations": np.array(r.penetrations),
+                 "von_mises": r.von_mises})
+    if name == "compare_all":
+        import warnings
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            r = compare_all(rectangle_mesh(12, 12, p0=(-1.0, -1.0),
+                                           p1=(1.0, 1.0)),
+                            verbose=False, max_iter=500, tol=1e-4, device=dev)
+        return (dict(r.iterations),
+                {k: v for k, v in r.solutions.items()
+                 if k != "IPOPT (no Hessian)"})
+    raise ValueError(name)
+
+
+def phase_contact_cases(dev, cpu=None):
+    """Phase 13 (i): the card against the CPU (counts and fields; nothing
+    timed)."""
+    print("== phase 13 (i): Signorini and the five solvers, card against "
+          "CPU", flush=True)
+    card_vs_cpu(dev, "13", cpu)
+
+
+def contact_record(dev, title: str, run, counts_of, pinned, checks_of):
+    """One record of phase 13 (ii)-(iii): run(timer) on dev, its counts
+    held to `pinned` and its checks, with its seconds, the shares of its
+    PhaseTimer phases, peak device memory and launches of the port's
+    kernels (none)."""
+    r, secs, timer, launches, peak = timed_run(dev, run)
+    counts = counts_of(r)
+    print(f"{title}: {secs:.2f} s, counts {counts}; pinned {pinned}; peak "
+          f"device memory {peak:.3f} GiB; launches of the port's CUDA "
+          f"kernels {launches}", flush=True)
+    print("  shares: " + ", ".join(
+        f"{k} {100 * v / secs:.1f}%" for k, v in timer.totals.items())
+        + "; PhaseTimer:\n    " + timer.report().replace("\n", "\n    "),
+        flush=True)
+    for what, ok in checks_of(r):
+        print(f"  check {what}: {'ok' if ok else 'FAILED'}", flush=True)
+        check(ok, f"{title}: {what}")
+    check(counts == pinned, f"{title}: counts equal the pinned ones")
+    check(all(v == 0 for v in launches.values()),
+          f"{title}: launches none of the port's kernels")
+    return r
+
+
+def signorini_checks(disp: float, pen_bound: float, axis: int):
+    """The reference tests' checks of a Signorini solution
+    (tests/test_signorini.py)."""
+    def checks(r):
+        return [("converged", r.converged),
+                (f"final penetration {r.penetrations[-1]:.3e} < "
+                 f"{pen_bound:.0e}", r.penetrations[-1] < pen_bound),
+                (f"Dirichlet value reached: min u_{axis} "
+                 f"{float(r.u[:, axis].min())!r} == {disp}",
+                 bool(np.isclose(r.u[:, axis].min(), disp))),
+                (f"psi finite, min psi {r.psi.min():.4g} < -1",
+                 bool(np.isfinite(r.psi).all()) and r.psi.min() < -1.0)]
+    return checks
+
+
+def compare_checks(mesh):
+    """compare_all's solutions against SNES-VI's within 5e-2 (the
+    reference test's bound; LVPP (P2) at the P1 dofs' points), the
+    interior point without the Hessian only printed: it stops at its cap
+    mid-descent in both packages (0.68 from SNES-VI on this disk)."""
+    from proximalgalerkin_torch.spaces import FunctionSpace
+
+    def checks(r):
+        p1 = FunctionSpace.create(mesh, 1).dof_points
+        p2 = FunctionSpace.create(mesh, 2).dof_points
+        pos = {tuple(np.round(p, 12)): i for i, p in enumerate(p2)}
+        at_p1 = np.array([pos[tuple(np.round(p, 12))] for p in p1])
+        ref = r.solutions["SNES-VI"]
+        out = []
+        for name in ("Galahad (TRB)", "LVPP (P1)", "LVPP (P2)",
+                     "IPOPT (w. Hessian)", "IPOPT (no Hessian)"):
+            s = r.solutions[name]
+            d = float(np.abs((s[at_p1] if s.shape != ref.shape else s)
+                             - ref).max())
+            if name == "IPOPT (no Hessian)":
+                print(f"  {name}: max |x - x_VI| {d:.3e} (not held)",
+                      flush=True)
+                continue
+            out.append((f"{name}: max |x - x_VI| {d:.3e} < 5e-2", d < 5e-2))
+        return out
+    return checks
+
+
+def phase_contact(dev, fd_res=None):
+    """Phase 13 (ii)-(iv), timed. fd_res: phase 8's result, whose counts
+    bench --mode fd must take (FD_1025_COUNTS without it)."""
+    import warnings
+    print("== phase 13 (ii)-(iv): Signorini, the five solvers, profiling "
+          "and bench --mode fd|stream", flush=True)
+    from proximalgalerkin_torch.mesh.parametric import create_half_sphere
+    from proximalgalerkin_torch.mesh.unstructured import create_disk_mesh
+    from proximalgalerkin_torch.models.obstacle_qp import compare_all
+    from proximalgalerkin_torch.models.signorini import solve_signorini
+
+    def sig_counts(r):
+        return {"lvpp": r.lvpp_iterations, "newton": r.newton_iterations}
+
+    # (ii) the records
+    for d in (0.10, 0.15, 0.20):
+        contact_record(
+            dev, f"signorini (ii) half-disk res 0.04, disp -{d:.2f}, LU",
+            lambda tm, d=d: solve_signorini(res=0.04, disp=-d, verbose=False,
+                                            device=dev, timer=tm),
+            sig_counts, REFERENCE_COUNTS[f"signorini_2d_{d:.2f}"],
+            signorini_checks(-d, 1e-3, 1))
+    sphere = create_half_sphere(res=0.12)
+    contact_record(
+        dev, "signorini (ii) half-sphere res 0.12, LU",
+        lambda tm: solve_signorini(tagged=sphere, verbose=False, device=dev,
+                                   timer=tm),
+        sig_counts, REFERENCE_COUNTS["signorini_3d_0.12"],
+        signorini_checks(-0.10, 5e-3, 2))
+    disk = create_disk_mesh(0.1)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        contact_record(
+            dev, "compare-all (ii) disk res 0.1, tol 1e-4",
+            lambda tm: compare_all(disk, max_iter=500, tol=1e-4,
+                                   verbose=False, device=dev, timer=tm),
+            lambda r: dict(r.iterations), REFERENCE_COUNTS["compare_all"],
+            compare_checks(disk))
+
+    # (iii) the width reading
+    wide = create_half_sphere(res=0.06)
+    contact_record(
+        dev, f"signorini (iii) half-sphere res 0.06 ({wide.mesh.num_cells} "
+        f"cells), LU, first {SIGNORINI_WIDTH_STEPS} LVPP steps",
+        lambda tm: solve_signorini(tagged=wide, verbose=False, device=dev,
+                                   timer=tm,
+                                   max_iterations=SIGNORINI_WIDTH_STEPS),
+        sig_counts, REFERENCE_COUNTS["signorini_3d_0.06"],
+        lambda r: [(f"{r.u.size + r.psi.size} dofs, penetrations "
+                    f"{[float(f'{p:.3g}') for p in r.penetrations]} finite",
+                    bool(np.isfinite(r.penetrations).all()))])
+
+    # (iv) one Newton step under the profiler, then the bench modes
+    phase_profile(dev)
+    phase_bench_modes(fd_res)
+
+
+def phase_profile(dev):
+    """One Signorini Newton step (the half-disk at res 0.04, snes_max_it
+    1: the LVPP stops after it with DIVERGED_MAX_IT) inside
+    utils.profiling.device_trace with an annotate region: the trace file
+    exists and holds the region and the card's kernels; the step's
+    seconds with and without the profiler."""
+    import contextlib
+    import glob
+    import io
+    import os
+    import tempfile
+    from proximalgalerkin_torch.models.signorini import solve_signorini
+    from proximalgalerkin_torch.utils.profiling import annotate, device_trace
+    region = "signorini_newton_step"
+
+    def step():
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            r = solve_signorini(res=0.04, verbose=False, max_iterations=1,
+                                newton_max_its=1, device=dev)
+        torch.cuda.synchronize(dev)
+        return r, out.getvalue()
+
+    step()                                          # warm
+    t0 = time.perf_counter()
+    r, said = step()
+    plain = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as logdir:
+        t0 = time.perf_counter()
+        with device_trace(logdir):
+            with annotate(region):
+                step()
+        traced = time.perf_counter() - t0
+        files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+        check(len(files) == 1, "device_trace wrote one trace file")
+        size = os.path.getsize(files[0])
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+    marks = [e for e in events if e.get("name") == region
+             and e.get("ph") == "X"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    busy = sum(e.get("dur", 0) for e in kernels) / 1e6
+    print(f"profile (iv) one Newton step of the half-disk res 0.04: "
+          f"{plain:.3f} s, {traced:.3f} s under device_trace (the "
+          f"profiler's own processing included); trace {size} bytes, "
+          f"{len(events)} events, region {region!r} {len(marks)} time(s), "
+          f"{len(kernels)} CUDA kernels, {busy:.4f} s of kernel time",
+          flush=True)
+    check("DIVERGED_MAX_IT" in said and r.newton_iterations == [],
+          "the one-step cap stops the LVPP after its first Newton step")
+    check(len(marks) >= 1, f"the trace holds the {region!r} region")
+    check(len(kernels) >= 1, "the trace holds CUDA kernels")
+
+
+def phase_bench_modes(fd_res=None):
+    """`bench --mode stream` and `bench --mode fd -n 1024` in a child each,
+    their JSON lines printed; the FD counts equal phase 8's."""
+    import os
+    here = os.path.dirname(os.path.abspath(__file__))
+    want = (FD_1025_COUNTS if fd_res is None else
+            {"outer": fd_res.outer_iterations, "newton": fd_res.newton_its})
+    for args in (["--mode", "stream"], ["--mode", "fd", "-n", "1024"]):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "proximalgalerkin_torch", "bench", *args],
+            cwd=here, capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0,
+              f"bench {' '.join(args)} exited {proc.returncode}:\n"
+              f"{proc.stderr[-3000:]}")
+        line = proc.stdout.strip().splitlines()[-1]
+        print(f"bench (iv) {' '.join(args)} ({time.perf_counter() - t0:.1f} "
+              f"s in its child): {line}", flush=True)
+        out = json.loads(line)
+        if args[1] == "stream":
+            print(f"  {out['stream_gbps'] * 1e9 / PEAK_BYTES_PER_S:.3f} of "
+                  "the card's 3.35 TB/s", flush=True)
+            check(all(out[k] > 0 for k in ("stream_gbps", "stream_gbps_dep",
+                                           "stream_gbps_indep")),
+                  "bench --mode stream rates")
+        else:
+            got = {"outer": out["outer"], "newton": out["newton"]}
+            print(f"  counts {got}, phase 8's {want}", flush=True)
+            check(out["mode"] == "fd_stencil" and got == want,
+                  "bench --mode fd counts equal phase 8's")
+            check(out["feasibility"] >= -1e-10, "bench --mode fd feasibility")
+
+
 BTLU_LABEL = "gradient 12^2 P2 btlu "
 
 
@@ -2005,6 +2343,8 @@ def case_group(group: str) -> list:
         return ([(BTLU_LABEL, n, btlu_case, 1e-10) for n in BTLU_CASES]
                 + [("multiphase N=10 ", n, multiphase_case, 1e-10)
                    for n in MULTIPHASE_CASES])
+    if group == "13":
+        return [("", n, contact_case, 1e-10) for n in CONTACT_CASES]
     return [("", n, schur_case, b) for n, b in SCHUR_CASES.items()]
 
 
@@ -2194,7 +2534,7 @@ MATFREE = {"ksp_type": "minres", "pc_type": "jacobi", "mat_type": "matfree",
 # (tests/test_eikonal.py:69-82), its first 5 LVPP steps
 MATFREE_NEWTON_5 = [2, 2, 3, 3, 2]
 SIZES = ("lvpp", "fd", "models", "multiphase", "first_steps",
-         "gradient_lvpp", "eikonal_matfree")
+         "gradient_lvpp", "eikonal_matfree", "signorini_width")
 
 
 def sizes(names=SIZES):
@@ -2211,7 +2551,9 @@ def sizes(names=SIZES):
     either side of GRADIENT_200_RESIDUAL; first_steps), and its
     first LVPP step at 200^2 (gradient_lvpp); the eikonal 24x4 with
     MINRES on the matrix-free Jacobian (MATFREE), its first 5 LVPP steps,
-    beside LU (eikonal_matfree)."""
+    beside LU (eikonal_matfree); the whole Signorini trajectory of the
+    half-sphere at res 0.06, with LU, whose first SIGNORINI_WIDTH_STEPS
+    LVPP steps phase 13 (iii) runs (signorini_width)."""
     phase_card()
     dev = torch.device("cuda", 0)
     if "lvpp" in names:
@@ -2265,6 +2607,19 @@ def sizes(names=SIZES):
             {"newton": MATFREE_NEWTON_5},
             lambda r: [(f"max |u - u_LU| {np.abs(r.u - lu.u).max():.2e} < "
                         "1e-6", np.abs(r.u - lu.u).max() < 1e-6)])
+    if "signorini_width" in names:
+        from proximalgalerkin_torch.mesh.parametric import create_half_sphere
+        from proximalgalerkin_torch.models.signorini import solve_signorini
+        wide = create_half_sphere(res=0.06)
+        r, secs, timer, launches, peak = timed_run(
+            dev, lambda tm: solve_signorini(tagged=wide, verbose=True,
+                                            device=dev, timer=tm))
+        print(f"signorini half-sphere res 0.06, LU, whole trajectory: "
+              f"{secs:.1f} s, LVPP {r.lvpp_iterations}, Newton "
+              f"{r.newton_iterations}, converged {r.converged}, final "
+              f"penetration {r.penetrations[-1]:.3e}; peak device memory "
+              f"{peak:.3f} GiB; launches {launches}; PhaseTimer:\n  "
+              + timer.report().replace("\n", "\n  "), flush=True)
 
 
 def sizes_models(dev):
@@ -2344,7 +2699,7 @@ def main():
     u_mg, c_mg = phase_main_mg(dev)
     c_jac = phase_main_jacobi(dev, u_mg)
     stamp("phases 1-7")
-    phase_fd(dev)
+    fd_res = phase_fd(dev)
     stamp("phase 8")
     lvpp_a = phase_lvpp(dev)
     stamp("phase 9")
@@ -2353,12 +2708,13 @@ def main():
     # the CPU halves of those checks, one child a phase; every timed run
     # starts after they have ended
     multiphase_24 = RecordProcess("multiphase_24")
-    cpu = {g: CpuCases(g) for g in ("10", "11", "12")}
+    cpu = {g: CpuCases(g) for g in ("10", "11", "12", "13")}
     try:
         phase_model_cases(dev, cpu["10"])
         phase_btlu_cases(dev, cpu["11"])
         phase_schur_cases(dev, cpu["12"])
-        stamp("phases 10 (i), 11 (i) and 12 (i)")
+        phase_contact_cases(dev, cpu["13"])
+        stamp("phases 10 (i), 11 (i), 12 (i) and 13 (i)")
         rec_24 = multiphase_24.result()
     finally:
         multiphase_24.stop()
@@ -2371,6 +2727,8 @@ def main():
     stamp("phase 11 (ii)-(v)")
     phase_schur(dev)
     stamp("phase 12 (ii)-(iv)")
+    phase_contact(dev, fd_res)
+    stamp("phase 13 (ii)-(iv)")
     print(f"smoke run {time.perf_counter() - T_START:.1f} s", flush=True)
 
     def entry(name, source, replaces, launches, timing, **extra):

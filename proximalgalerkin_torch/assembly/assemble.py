@@ -440,18 +440,27 @@ class VolumeForm:
                for f in self.space.names]
         return np.concatenate(per, axis=1)
 
-    def assemble_scipy(self, x, coeffs=None, consts=None):
+    def assemble_scipy(self, x, coeffs=None, consts=None, timer=None):
         """Assembled CSR matrix on host (the MUMPS-replacement LU path for
-        small/medium systems and verification)."""
+        small/medium systems and verification). With a PhaseTimer, the
+        device element matrices, the copy to the host and the COO sum are
+        timed as 'assembly', 'host_transfer' and 'csr'."""
+        import contextlib
         import scipy.sparse as sp
-        Ae = self.element_matrices(x, coeffs, consts).cpu().numpy()
-        gi = self.local_indices
-        L = gi.shape[1]
-        rows = np.repeat(gi, L, axis=1).reshape(-1)
-        cols = np.tile(gi, (1, L)).reshape(-1)
-        N = self.space.num_dofs
-        A = sp.coo_matrix((Ae.reshape(-1), (rows, cols)), shape=(N, N))
-        return A.tocsr()
+        phase = (timer.phase if timer is not None
+                 else lambda name: contextlib.nullcontext())
+        with phase("assembly"):
+            Ae = self.element_matrices(x, coeffs, consts)
+        with phase("host_transfer"):
+            Ae = Ae.cpu().numpy()
+        with phase("csr"):
+            gi = self.local_indices
+            L = gi.shape[1]
+            rows = np.repeat(gi, L, axis=1).reshape(-1)
+            cols = np.tile(gi, (1, L)).reshape(-1)
+            N = self.space.num_dofs
+            A = sp.coo_matrix((Ae.reshape(-1), (rows, cols)), shape=(N, N))
+            return A.tocsr()
 
     # ------------------------------------------------------------ diagonal
 

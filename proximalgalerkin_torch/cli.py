@@ -5,6 +5,9 @@
     obstacle [-p 1|2] [--alpha-scheme S] [--disk-res R] [--output-dir DIR]
     obstacle-fd [-N 65]
     obstacle-spectral [--degrees 8 16 ...] [--solve-dtype f64|f32_refine]
+    compare-all [--disk-res 0.1] [--max-iter 500] [--tol 1e-4]
+    signorini [--degree 1] [--disp -0.10] [--res 0.04] [--E 2e4] [--nu 0.3]
+        [--alpha_scheme doubling] [--alpha_0 0.005]
     fracture [--res 0.05] [--Tmin 0] [--Tmax 5] [--num-load-steps 1001]
     multiphase [-N 50] [-M 50] [--dt 1e-5] [--T 7e-3] [--alpha_scheme S]
         [-s 1e-5]
@@ -15,16 +18,17 @@
     intersecting [--cells 1001]
     eikonal [--ns 48] [--nt 6] [--geometry mobius|star|ball] [--res 0.08]
     monge-ampere [--kmin 3] [--kmax 14]
-    bench -n 1024 [--pc {mg,jacobi}] [--fused]
+    bench -n 1024 [--mode fem|fd|stream] [--pc {mg,jacobi}] [--fused]
+        [--esz 4|8]
 
 The model subcommands are the reference CLI's of the same names, with its
 flags, defaults and printed lines. `--opt KEY=VALUE` (repeatable, before
 the subcommand) passes PETSc-style solver options to the models that take
-them (fracture, multiphase, thermoforming, gradient-constraint,
-eigenvalue, eikonal), with the reference's coercion of VALUE (int, float,
-true/false, else a string): e.g. `--opt pc_type=btlu` solves each Newton
-system with the device block-tridiagonal factor, and `--opt snes_fused=true
---opt pc_type=btlu --opt pc_factor_lag=1 --opt pc_factor_dtype=f64` runs
+them (signorini, fracture, multiphase, thermoforming,
+gradient-constraint, eigenvalue, eikonal), with the reference's coercion
+of VALUE (int, float, true/false, else a string): e.g. `--opt
+pc_type=btlu` solves each Newton system with the device block-tridiagonal
+factor, and `--opt snes_fused=true --opt pc_type=btlu --opt pc_factor_lag=1 --opt pc_factor_dtype=f64` runs
 multiphase through the fused lagged-btlu Newton; `--opt ksp_type=minres`
 runs eikonal through block-Schur MINRES, and `--opt ksp_type=minres --opt
 pc_type=schur_mg --opt ksp_precision=mixed --opt pc_schur_field0=psi`
@@ -32,14 +36,24 @@ gradient-constraint through the lattice-multigrid Schur preconditioner.
 `--n-devices` (the dof-partitioned multi-device paths of obstacle and
 fracture) is not ported yet (ROADMAP A12) and is refused.
 
-`bench` runs the north-star obstacle benchmark in this process: P1
-obstacle on rectangle_mesh(n, n) over [-1,1]^2, alpha capped at 1e2,
-outer increment tolerance 1e-8, mixed precision, with the fused MG-PCG
-inner solve (--pc mg, the default) or the fused DIA-CG (--pc jacobi),
-the counterpart of the reference's PGTPU_BENCH_PC. --fused runs
-solve_fused() instead of solve() (PGTPU_BENCH_FUSED). It prints one JSON
-line with the keys of the reference's bench worker (bench.py
-_worker_fem) and diagnostics on stderr.
+`bench` runs one of the reference bench's workers in this process and
+prints one JSON line with that worker's keys, diagnostics on stderr:
+  --mode fem (default, bench.py _worker_fem): the north-star obstacle
+    benchmark, P1 obstacle on rectangle_mesh(n, n) over [-1,1]^2, alpha
+    capped at 1e2, outer increment tolerance 1e-8, mixed precision, with
+    the fused MG-PCG inner solve (--pc mg, the default) or the fused
+    DIA-CG (--pc jacobi), the counterpart of the reference's
+    PGTPU_BENCH_PC; --fused runs solve_fused() instead of solve()
+    (PGTPU_BENCH_FUSED);
+  --mode fd (_worker_fd): the FD obstacle at N = n + 1, outer tolerance
+    1e-8 (the bench's PGTPU_BENCH_TOL default), after a warm-up run at
+    max_outer=1 (its seconds in warmup_s);
+  --mode stream (_worker_stream): the device memory rate of a 3-stream
+    axpy recurrence (u, v <- v, (u + v) / 2, one torch.lerp a chain and
+    trip) in the --esz dtype, from a least-squares fit of seconds against
+    trip counts, with 1 chain of 1.0 GB buffers and 4 independent chains
+    of 0.6 GB each, as the reference's (a working set far beyond the
+    card's 50 MB L2), torch.cuda.synchronize as the barrier.
 
 Every subcommand runs on --device (default cuda).
 """
@@ -118,6 +132,87 @@ def run_bench(n: int, device: str, pc: str = "mg",
             "esz": esz}
 
 
+def run_bench_fd(n: int, device: str) -> dict:
+    """The reference bench's FD worker (bench.py _worker_fd) at its
+    default tolerance 1e-8: a warm-up run at max_outer=1, then the timed
+    run, at N = n + 1."""
+    import torch
+    from .models.obstacle_fd import fd_obstacle_solve
+    dev = torch.device(device)
+    tol = 1e-8
+    t0 = time.time()
+    fd_obstacle_solve(n + 1, outer_tol=tol, max_outer=1, device=dev)
+    warmup = time.time() - t0
+    print(f"# fd warmup {warmup:.1f}s", file=sys.stderr, flush=True)
+    t0 = time.time()
+    res = fd_obstacle_solve(n + 1, outer_tol=tol, device=dev)
+    elapsed = time.time() - t0       # the result ends in a host copy
+    return {"mode": "fd_stencil", "elapsed": elapsed, "n": n,
+            "dofs": 2 * (n + 1) ** 2, "newton": res.newton_its,
+            "outer": res.outer_iterations, "converged": True,
+            "feasibility": float((res.u - res.phi).min()),
+            "warmup_s": warmup}
+
+
+def run_bench_stream(n_elems: int, device: str, esz: int = 4,
+                     gb: tuple = (1.0, 0.6)) -> dict:
+    """The reference bench's stream worker (bench.py _worker_stream) in
+    torch: GB/s of a 3-stream axpy recurrence (read u, read v, write v'
+    = (u + v) / 2, u' = v) from the slope of seconds against trip counts,
+    with 1 chain (dep) and 4 independent chains (indep)."""
+    import numpy as np
+    import torch
+    dev = torch.device(device)
+    dt = torch.float32 if esz == 4 else torch.float64
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def probe(chains: int, gb_per_buf: float) -> float:
+        rows = max(1, int(gb_per_buf * 1e9) // (n_elems * esz))
+        size = rows * n_elems
+        bufs = [[torch.full((size,), 1.0 + i, dtype=dt, device=dev),
+                 torch.full((size,), 2.0 + i, dtype=dt, device=dev),
+                 torch.empty(size, dtype=dt, device=dev)]
+                for i in range(chains)]
+        iter_bytes = 3 * size * esz * chains
+
+        def timed(reps):
+            best = float("inf")
+            for _ in range(3):
+                sync()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    for b in bufs:
+                        torch.lerp(b[0], b[1], 0.5, out=b[2])
+                        b[0], b[1], b[2] = b[1], b[2], b[0]
+                sync()
+                best = min(best, time.perf_counter() - t0)
+            return best
+
+        timed(2)                                   # warm
+        counts = [10, 40, 160, 320] if chains == 1 else [5, 20, 60, 120]
+        times = [timed(r) for r in counts]
+        slope = float(np.polyfit(np.asarray(counts, float),
+                                 np.asarray(times, float), 1)[0])
+        gbps = iter_bytes / max(slope, 1e-12) / 1e9
+        for r, t in zip(counts, times):
+            print(f"# stream[{chains}ch] reps={r} t={t:.4f}s",
+                  file=sys.stderr)
+        print(f"# stream[{chains}ch] {chains} x {size} x {esz} B "
+              f"({chains * size * esz / 1e9:.2f} GB a buffer set), slope "
+              f"{slope * 1e3:.3f} ms/iter -> {gbps:.1f} GB/s",
+              file=sys.stderr, flush=True)
+        return gbps
+
+    dep = probe(1, gb[0])
+    indep = probe(4, gb[1])
+    return {"stream_gbps": round(max(dep, indep), 1),
+            "stream_gbps_dep": round(dep, 1),
+            "stream_gbps_indep": round(indep, 1)}
+
+
 def _add_obstacle(sub):
     p = sub.add_parser("obstacle", help="Example 01: LVPP obstacle problem")
     p.add_argument("--polynomial_order", "-p", type=int, default=1,
@@ -177,6 +272,24 @@ def _run_obstacle(args):
 
 
 def _add_models(sub):
+    p = sub.add_parser("compare-all",
+                       help="Example 01 five-solver comparison")
+    p.add_argument("--disk-res", type=float, default=0.1)
+    p.add_argument("--max-iter", type=int, default=500)
+    p.add_argument("--tol", type=float, default=1e-4)
+    _add_device(p)
+
+    p = sub.add_parser("signorini", help="Example 02 Signorini contact")
+    p.add_argument("--degree", type=int, default=1)
+    p.add_argument("--disp", type=float, default=-0.10)
+    p.add_argument("--res", type=float, default=0.04)
+    p.add_argument("--E", type=float, default=2e4)
+    p.add_argument("--nu", type=float, default=0.3)
+    p.add_argument("--alpha_scheme", default="doubling",
+                   choices=["constant", "linear", "doubling"])
+    p.add_argument("--alpha_0", type=float, default=0.005)
+    _add_device(p)
+
     p = sub.add_parser("obstacle-spectral",
                        help="Example 01 spectral variant")
     p.add_argument("--degrees", type=int, nargs="+",
@@ -266,6 +379,20 @@ def _run_model(args, opts):
         print("degrees:", r.degrees)
         print("newton:", r.newton_its)
         print("sup diffs:", r.sup_errors)
+    elif args.cmd == "compare-all":
+        from .mesh.unstructured import create_disk_mesh
+        from .models.obstacle_qp import compare_all
+        compare_all(create_disk_mesh(args.disk_res), max_iter=args.max_iter,
+                    tol=args.tol, device=dev)
+    elif args.cmd == "signorini":
+        from .models.signorini import solve_signorini
+        r = solve_signorini(res=args.res, degree=args.degree, disp=args.disp,
+                            E=args.E, nu=args.nu,
+                            alpha_scheme=args.alpha_scheme,
+                            alpha_0=args.alpha_0, solver_options=opts,
+                            device=dev)
+        print(f"LVPP {r.lvpp_iterations}, Newton {sum(r.newton_iterations)}, "
+              f"final penetration {r.penetrations[-1]:.3e}")
     elif args.cmd == "fracture":
         if args.n_devices:
             raise SystemExit("--n-devices: the dof-partitioned multi-device "
@@ -353,6 +480,11 @@ def main(argv=None):
     p = sub.add_parser("bench", help="north-star obstacle benchmark")
     p.add_argument("-n", type=int, default=1024)
     _add_device(p)
+    p.add_argument("--mode", choices=("fem", "fd", "stream"), default="fem",
+                   help="the reference bench worker to run: fem (default), "
+                        "fd or stream")
+    p.add_argument("--esz", type=int, choices=(4, 8), default=4,
+                   help="bytes an element of --mode stream (default 4)")
     p.add_argument("--pc", choices=("mg", "jacobi"), default="mg",
                    help="inner preconditioner: fused MG-PCG or fused "
                         "DIA-CG (default mg)")
@@ -368,8 +500,13 @@ def main(argv=None):
         r = fd_obstacle_solve(args.N, verbose=True, device=args.device)
         print(f"outer {r.outer_iterations} newton {r.newton_its}")
     elif args.cmd == "bench":
-        print(json.dumps(run_bench(args.n, args.device, args.pc,
-                                   args.fused)), flush=True)
+        if args.mode == "fd":
+            out = run_bench_fd(args.n, args.device)
+        elif args.mode == "stream":
+            out = run_bench_stream((args.n + 1) ** 2, args.device, args.esz)
+        else:
+            out = run_bench(args.n, args.device, args.pc, args.fused)
+        print(json.dumps(out), flush=True)
     else:
         _run_model(args, opts)
 

@@ -1,3 +1,4 @@
 from .checkpoint import LVPPCheckpoint
+from .profiling import annotate, device_trace
 
-__all__ = ["LVPPCheckpoint"]
+__all__ = ["LVPPCheckpoint", "annotate", "device_trace"]

@@ -1,5 +1,6 @@
-"""The JAX package's CPU runs whose counts chip_smoke.py's phase 12 pins
-(eikonal, Monge–Ampère, the gradient constraint with schur_mg).
+"""The JAX package's CPU runs whose counts chip_smoke.py's phases 12 and 13
+pin (eikonal, Monge–Ampère, the gradient constraint with schur_mg;
+Signorini and the five-solver comparison).
 
     python scripts/jax_reference_records.py CASE
 
@@ -8,8 +9,12 @@ one of CASES below; gcmg_N is the N^2 P2 gradient constraint with minres
 / schur_mg / mixed / block0 psi (verbose, with the Newton reasons on
 stderr); dir_N the relative residual |J dx + F| / |F| of that problem's
 first Newton direction (alpha = 1, x0 = 0), and dir0_N the same with no
-f64 refinement pass (ksp_refine_max 0: the f32 inner solve alone). It runs the JAX package on
-the CPU, as the repository's tests do.
+f64 refinement pass (ksp_refine_max 0: the f32 inner solve alone);
+sig2d_D the Signorini half-disk at res 0.04 pressed by disp = -D (D one of
+0.10, 0.15, 0.20), sig3d the half-sphere at res 0.12, sig3d_006 the
+half-sphere at res 0.06 cut to its first 5 LVPP steps, and compare_all
+the five solvers on the disk at res 0.1, tol 1e-4 (RESULTS.md:160-162). It
+runs the JAX package on the CPU, as the repository's tests do.
 """
 
 import json
@@ -35,7 +40,8 @@ MATFREE = {"ksp_type": "minres", "pc_type": "jacobi", "mat_type": "matfree",
            "snes_max_it": 50}
 CASES = ("eik_lu", "eik_schur", "eik_matfree", "eik_star", "ball_0.45",
          "ball_0.3", "ball_0.15", "ma", "ma_h", "gcmg_16", "gcmg_24",
-         "gcmg_48", "dir_N", "dir0_N")
+         "gcmg_48", "dir_N", "dir0_N", "sig2d_0.10", "sig2d_0.15",
+         "sig2d_0.20", "sig3d", "sig3d_006", "compare_all")
 
 
 def eikonal(r):
@@ -105,6 +111,32 @@ def run(case: str) -> dict:
         r = p.jacobian_scipy(x) @ np.asarray(dx) + np.asarray(F)
         return {"relative_residual": float(np.linalg.norm(r)
                                            / np.linalg.norm(F))}
+    if case.startswith("sig"):
+        from proximalgalerkin_tpu.mesh.parametric import create_half_sphere
+        from proximalgalerkin_tpu.models.signorini import solve_signorini
+        if case.startswith("sig2d_"):
+            r = solve_signorini(res=0.04, disp=-float(case.split("_")[1]),
+                                verbose=True)
+        elif case == "sig3d":
+            r = solve_signorini(tagged=create_half_sphere(res=0.12),
+                                verbose=True)
+        else:
+            r = solve_signorini(tagged=create_half_sphere(res=0.06),
+                                max_iterations=5, verbose=True)
+        return {"lvpp": r.lvpp_iterations, "newton": r.newton_iterations,
+                "converged": r.converged, "penetrations": r.penetrations,
+                "psi_min": float(np.min(r.psi)), "dofs": int(
+                    r.u.size + np.asarray(r.psi).size)}
+    if case == "compare_all":
+        from proximalgalerkin_tpu.mesh.unstructured import create_disk_mesh
+        from proximalgalerkin_tpu.models.obstacle_qp import compare_all
+        r = compare_all(create_disk_mesh(0.1), max_iter=500, tol=1e-4,
+                        verbose=False)
+        ref = np.asarray(r.solutions["SNES-VI"])
+        return {"iterations": r.iterations,
+                "max_diff_to_vi": {k: float(np.abs(np.asarray(v) - ref).max())
+                                   for k, v in r.solutions.items()
+                                   if np.shape(v) == ref.shape}}
     raise SystemExit(f"unknown case {case!r}; one of {CASES}")
 
 

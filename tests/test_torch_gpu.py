@@ -14,10 +14,10 @@ from proximalgalerkin_torch.models.obstacle_p1 import P1ObstacleSolver
 from proximalgalerkin_torch.ops import dia_cg, mgfused
 from proximalgalerkin_torch.ops.dia_spmv import dia_spmv, dia_spmv_reference
 
-from chip_smoke import (BTLU_CASES, MODELS, MULTIPHASE_CASES, SCHUR_CASES,
-                        btlu_case, dia_cg_system, field_rtol, grids_on,
-                        model_case, multiphase_case, p1_operator, rel_field,
-                        residual_ratio, schur_case)
+from chip_smoke import (BTLU_CASES, CONTACT_CASES, MODELS, MULTIPHASE_CASES,
+                        SCHUR_CASES, btlu_case, contact_case, dia_cg_system,
+                        field_rtol, grids_on, model_case, multiphase_case,
+                        p1_operator, rel_field, residual_ratio, schur_case)
 
 pytestmark = pytest.mark.gpu
 
@@ -362,6 +362,35 @@ def test_schur_on_card_matches_cpu(cuda, name):
     assert c_card == c_cpu
     for k in f_card:
         assert rel_field(f_card[k], f_cpu[k]) <= SCHUR_CASES[name], k
+
+
+@pytest.mark.parametrize("name", CONTACT_CASES)
+def test_contact_on_card_matches_cpu(cuda, name):
+    """Phase 13 (i)'s cases on the card and on the CPU: Signorini on the
+    half-disk at res 0.06 and the half-sphere at res 0.16, compare_all on
+    the 12^2 rectangle: counts equal, fields (u, psi, penetrations, von
+    Mises; the solvers' solutions) within 1e-10 relative."""
+    c_card, f_card = contact_case(name, cuda)
+    c_cpu, f_cpu = contact_case(name, torch.device("cpu"))
+    assert c_card == c_cpu
+    for k in f_card:
+        assert rel_field(f_card[k], f_cpu[k]) <= 1e-10, k
+
+
+def test_signorini_trace_on_card(cuda, tmp_path):
+    """One Signorini Newton step inside utils.profiling.device_trace on
+    the card: the trace holds the annotate region and CUDA kernels."""
+    import json
+    from proximalgalerkin_torch.models.signorini import solve_signorini
+    from proximalgalerkin_torch.utils.profiling import annotate, device_trace
+    with device_trace(str(tmp_path)):
+        with annotate("signorini_newton_step"):
+            solve_signorini(res=0.06, verbose=False, max_iterations=1,
+                            newton_max_its=1, device=cuda)
+    (f,) = tmp_path.glob("*.pt.trace.json")
+    events = json.loads(f.read_text())["traceEvents"]
+    assert any(e.get("name") == "signorini_newton_step" for e in events)
+    assert any(e.get("cat") == "kernel" for e in events)
 
 
 def test_fd_obstacle_on_card_matches_cpu(cuda):
