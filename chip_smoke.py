@@ -11,9 +11,15 @@
                                        # gradient constraint (schur_mg),
                                        # the matrix-free eikonal, the
                                        # whole res 0.06 Signorini
-                                       # trajectory (SIZES)
+                                       # trajectory, the 224^2
+                                       # distributed obstacle's 4 LVPP
+                                       # steps, the 29-step distributed
+                                       # fracture, the halo FD at
+                                       # N = 1025 (SIZES)
     python3 chip_smoke.py --record KEY # one MULTIPHASE_RECORDS run, as a
-                                       # JSON line (phase 11 (iv)'s child)
+                                       # JSON line, or the eikonal ball
+                                       # (eikonal_ball): the children of
+                                       # phases 11 (iv) and 12 (ii)
     python3 chip_smoke.py --cpu-cases GROUP OUT
                                        # the CPU halves of phase GROUP's
                                        # (i) checks, pickled to OUT (a
@@ -110,7 +116,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    relative (1e-8 for the MINRES directions), beside phase 11 (iv)'s
    child; (ii) the eikonal records: the Möbius strip 48x6 with LU and
    with the Schur-MINRES default, the star at res 0.08 and the ball at
-   res 0.3 with LU; (iii) the Monge–Ampère p-sweep k = 3..8: counts
+   res 0.3 with LU (the ball, 118-141 s of host SuperLU, in a child
+   process beside the (i) checks, as phase 11 (iv)); (iii) the
+   Monge–Ampère
+   p-sweep k = 3..8: counts
    equal to the JAX package's CPU counts pinned here, the reference
    tests' checks; (iv) the gradient constraint at its CLI width, 200^2
    P2 (241,603 dofs), with minres / schur_mg / mixed / block0 psi,
@@ -142,7 +151,29 @@ Phases, each printing its own lines; any failure exits non-zero:
    trace file, the region and the card's kernels in it), then `bench
    --mode stream` and `bench --mode fd -n 1024` in a child each (the FD
    counts equal phase 8's);
-14. a JSON line of the kernels, then the JSON status line.
+14. the distributed layer (parallel/: comm.py, halo.py, sharding.py,
+   dofpart.py, multihost.py), as torch ops on the card with 8
+   subdomains on its shard axis: (i) the smallest case of each new CPU
+   parity test on the card and on the CPU (dofpart's residual and
+   Jacobian action on the disk res 0.2 P1 and the 13x11 P2 rectangle,
+   the 3-step distributed LVPP on the disk res 0.25,
+   fd_obstacle_solve_sharded(33)): counts equal, fields within 1e-10
+   relative, the CPU halves in a fifth CpuCases child; (ii) the JAX
+   package's distributed records: the 96^2 obstacle with asm_btlu, 3
+   LVPP steps (Newton [5, 4, 3], u held to the port's host-LU run
+   within 1e-8, and the ms of one Jacobian action eager and as a CUDA
+   graph and of one exchange), the first LVPP step of the 224^2 obstacle
+   (101,250 dofs; Newton 5; owned dofs, ext_total, nb x bs beside the
+   record's), the distributed fracture at res 0.1 with MINRES on the
+   matrix-free action, its first FRACTURE_DIST_STEPS load steps, and
+   fd_obstacle_solve_sharded(257) on 8 strips, their counts pinned from
+   the JAX package's CPU runs, each with its seconds, the shares of
+   residuals, Jacobian actions, Schwarz factors and applies (DistTally),
+   peak device memory and zero launches of the port's CUDA kernels;
+   (iii) init_multihost on NCCL at world size 1: the disk-0.25 obstacle
+   on 4 subdomains through the process group bit for bit equal to the
+   in-process run;
+15. a JSON line of the kernels, then the JSON status line.
 
 Lines starting "--" give the time into the run at which each group of
 phases ended.
@@ -1968,11 +1999,19 @@ def eikonal_checks(kind: str):
     return checks
 
 
-def phase_schur(dev):
-    """Phase 12 (ii)-(iv), timed."""
+def ball_record(dev):
+    """Phase 12 (ii)'s eikonal ball at res 0.3 with LU."""
+    from proximalgalerkin_torch.mesh.parametric import create_ball_mesh
+    eikonal_record(dev, "eikonal (ii) ball res 0.3, LU", "eikonal_ball_0.3",
+                   {"mesh": create_ball_mesh(res=0.3)})
+
+
+def phase_schur(dev, ball=None):
+    """Phase 12 (ii)-(iv), timed. ball: the readings of ball_record's
+    child (RecordProcess("eikonal_ball"), its checks passed there), else
+    the ball runs in line."""
     print("== phase 12 (ii)-(iv): eikonal, Monge–Ampère and the lattice "
           "block-Schur direction", flush=True)
-    from proximalgalerkin_torch.mesh.parametric import create_ball_mesh
     from proximalgalerkin_torch.mesh.unstructured import create_star_mesh
     from proximalgalerkin_torch.models.monge_ampere import p_refinement_sweep
 
@@ -1982,10 +2021,12 @@ def phase_schur(dev):
             ("eikonal (ii) Möbius 48x6, Schur-MINRES", "eikonal_mobius",
              {"solver_options": SCHUR_MINRES}),
             ("eikonal (ii) star res 0.08, LU", "eikonal_star",
-             {"mesh": create_star_mesh(0.08)}),
-            ("eikonal (ii) ball res 0.3, LU", "eikonal_ball_0.3",
-             {"mesh": create_ball_mesh(res=0.3)})):
+             {"mesh": create_star_mesh(0.08)})):
         eikonal_record(dev, title, key, kw)
+    if ball is None:
+        ball_record(dev)
+    else:
+        print(ball["out"], flush=True)
 
     # (iii) the Monge–Ampère p-sweep
     def ma_checks(s):
@@ -2330,6 +2371,414 @@ def phase_bench_modes(fd_res=None):
             check(out["feasibility"] >= -1e-10, "bench --mode fd feasibility")
 
 
+# ---------------------------------------------------------------- phase 14
+
+# The distributed layer (parallel/): 8 subdomains on the card's shard axis
+DIST_ND = 8
+DIST_CASES = {"residual_disk0.2_P1": 1e-10, "residual_rect13x11_P2": 1e-10,
+              "newton_disk0.25": 1e-10, "halo_fd_33": 1e-10}
+# The JAX package's CPU records on 8 virtual devices (RESULTS.md:625-640,
+# :589-594): rec_distributed_obstacle_96/_224.json (asm_btlu, Newton
+# counts identical to host LU) and rec_fracture_distributed_30.json
+# (MINRES on the matrix-free action)
+REFERENCE_COUNTS["distributed_96"] = {"newton": [5, 4, 3]}
+REFERENCE_COUNTS["distributed_224"] = {"newton": [5, 4, 3, 2]}
+DIST_224_RECORD = {"dofs": 101250, "per_device_owned": 12658,
+                   "ext_total": 37974, "nb_bs": [253, 151]}
+REFERENCE_COUNTS["fracture_distributed"] = {
+    "newton": [37, 30, 27, 25, 20, 20, 18, 16, 15, 67, 362, 93, 32, 8, 26,
+               8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8],
+    "lvpp": [12, 12, 12, 11, 9, 9, 8, 8, 7, 13, 24, 15, 6, 2, 5, 2, 2, 2,
+             2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2],
+    "retries": [0] * 10 + [5] + [0] * 18}
+# the smoke run holds the record's first FRACTURE_DIST_STEPS load steps
+# (the first 3 took 106.6 s on an H100, 37 / 94 of it the first; the
+# smoke run's time limit leaves room for one); `--sizes
+# fracture_distributed` runs all 29
+FRACTURE_DIST_STEPS = 1
+FRACTURE_DIST_OPTS = {"snes_linesearch_type": "l2", "snes_atol": 1e-6,
+                      "snes_rtol": 1e-8, "snes_max_it": 50,
+                      "ksp_type": "minres", "pc_type": "jacobi",
+                      "mat_type": "matfree", "ksp_rtol": 1e-11,
+                      "ksp_max_it": 6000}
+# fd_obstacle_solve_sharded(N) on 8 virtual CPU devices, from `python
+# scripts/jax_reference_records.py halo_257` (and halo_33, which the CPU
+# test holds to the reference's single-device solve instead)
+REFERENCE_COUNTS["halo_257"] = {"outer": 13, "newton": 20}
+REFERENCE_COUNTS["halo_33"] = {"outer": 10, "newton": 17}
+DIST_ASM_OPTS = {"snes_rtol": 1e-6, "snes_max_it": 50,
+                 "snes_linesearch_type": "none", "ksp_type": "preonly",
+                 "pc_type": "btlu", "ksp_rtol": 1e-11, "ksp_max_it": 600}
+DIST_LVPP_OPTS = {"snes_rtol": 1e-6, "snes_max_it": 50,
+                  "snes_linesearch_type": "none", "ksp_type": "minres",
+                  "pc_type": "jacobi", "mat_type": "matfree",
+                  "ksp_rtol": 1e-11, "ksp_max_it": 2000}
+
+
+def _dist_obstacle(dev, mesh, comm=None):
+    """The obstacle problem on `mesh` and its DistributedProblem (DIST_ND
+    subdomains in this process, or `comm`'s)."""
+    from proximalgalerkin_torch.models.obstacle import setup_obstacle_problem
+    from proximalgalerkin_torch.parallel.dofpart import DistributedProblem
+    prob = setup_obstacle_problem(mesh, polynomial_order=1, verbose=False,
+                                  device=dev)
+    return prob, DistributedProblem(prob.problem, comm, n_devices=DIST_ND)
+
+
+def dist_lvpp(prob, dp, opts, steps, timer=None):
+    """The LVPP driver on dp (double-exponential alpha to 1e5, tol 1e-50,
+    `steps` outer steps): (result, the Newton solver)."""
+    from proximalgalerkin_torch.parallel.dofpart import DistributedLvppProblem
+    from proximalgalerkin_torch.solve.lvpp import AlphaScheduler, LVPPSolver
+    dlp = DistributedLvppProblem(dp)
+    dlp.update(coeffs={"phi": dp.scatter_cellq(prob.problem.coeffs["phi"])})
+    solver = LVPPSolver(
+        dlp, newton_options=dict(opts),
+        alpha=AlphaScheduler(scheme="double_exponential", alpha_max=1e5),
+        prev_coeffs=lambda xs: {"psi_k": dp.field_to_coeff(xs, "psi"),
+                                "u_k": dp.field_to_coeff(xs, "u")},
+        tol=1e-50, max_iterations=steps, verbose=False, timer=timer)
+    return solver.solve(dp.scatter(np.zeros(prob.space.num_dofs))), \
+        solver.newton
+
+
+def dist_case(name: str, dev):
+    """The smallest case of each new parity test
+    (tests/test_torch_dofpart.py, _parallel.py) on dev, 8 subdomains:
+    (counts, fields as host arrays)."""
+    from proximalgalerkin_torch.mesh import rectangle_mesh
+    from proximalgalerkin_torch.mesh.unstructured import create_disk_mesh
+    if name.startswith("residual"):
+        mesh = (create_disk_mesh(0.2) if "disk" in name else
+                rectangle_mesh(13, 11, p0=(-1.0, -1.0), p1=(1.0, 1.0)))
+        from proximalgalerkin_torch.models.obstacle import \
+            setup_obstacle_problem
+        from proximalgalerkin_torch.parallel.dofpart import \
+            DistributedProblem
+        prob = setup_obstacle_problem(mesh, polynomial_order=int(name[-1]),
+                                      verbose=False, device=dev)
+        p, space = prob.problem, prob.space
+        dp = DistributedProblem(p, n_devices=DIST_ND)
+        rng = np.random.default_rng(7)
+        x = rng.standard_normal(space.num_dofs)
+        psi_k = rng.standard_normal(space.spaces["psi"].num_dofs)
+        u_k = rng.standard_normal(space.spaces["u"].num_dofs)
+        coeffs = {"phi": dp.scatter_cellq(p.coeffs["phi"]),
+                  "psi_k": dp.scatter_coeff("psi_k", psi_k),
+                  "u_k": dp.scatter_coeff("u_k", u_k)}
+        xs = dp.scatter(x)
+        v = np.random.default_rng(3).standard_normal(space.num_dofs)
+        return ({"dofs": space.num_dofs, "Bsum": dp.Bsum,
+                 "ext_total": dp.ext_total},
+                {"F": dp.gather(dp.residual(xs, coeffs)),
+                 "Jv": dp.gather(dp.jacobian_action(xs, dp.scatter(v),
+                                                    coeffs))})
+    if name == "newton_disk0.25":
+        prob, dp = _dist_obstacle(dev, create_disk_mesh(0.25))
+        r, _ = dist_lvpp(prob, dp, DIST_LVPP_OPTS, 3)
+        return {"newton": r.newton_steps}, {"x": dp.gather(r.x)}
+    if name == "halo_fd_33":
+        from proximalgalerkin_torch.parallel.halo import \
+            fd_obstacle_solve_sharded
+        c = {}
+        u, _, outer, newton = fd_obstacle_solve_sharded(
+            33, device=dev, n_devices=DIST_ND, counts=c)
+        return ({"outer": outer, "newton": newton,
+                 "per_outer": c["newton_per_outer"]}, {"u": u})
+    raise ValueError(name)
+
+
+def phase_dist_cases(dev, cpu=None):
+    """Phase 14 (i): the card against the CPU (counts and fields; nothing
+    timed)."""
+    print("== phase 14 (i): the distributed layer, card against CPU",
+          flush=True)
+    halo = card_vs_cpu(dev, "14", cpu)["halo_fd_33"]
+    got = {k: halo[k] for k in REFERENCE_COUNTS["halo_33"]}
+    print(f"halo_fd_33 counts {got}, the JAX package's sharded run "
+          f"{REFERENCE_COUNTS['halo_33']}", flush=True)
+    check(got == REFERENCE_COUNTS["halo_33"], "halo_fd_33 pinned counts")
+
+
+class DistTally:
+    """Synchronised times of the distributed Newton's parts while on
+    (monkeypatched onto DistributedProblem): residuals (assembly under
+    torch.func, with their exchanges), Jacobian actions (graph replays,
+    exchanges inside), asm_btlu factors and applies, Jacobi diagonals;
+    the rest of the Newton time is the Krylov vector work and host
+    reads."""
+
+    PARTS = ("residual", "jac_action", "pc_factor", "pc_apply", "diagonal")
+
+    def __init__(self, dev):
+        self.dev = dev
+        self.secs = dict.fromkeys(self.PARTS, 0.0)
+        self.calls = dict.fromkeys(self.PARTS, 0)
+
+    def _timed(self, part, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize(self.dev)
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize(self.dev)
+            self.secs[part] += time.perf_counter() - t0
+            self.calls[part] += 1
+            return out
+        return run
+
+    def __enter__(self):
+        from proximalgalerkin_torch.parallel import dofpart
+        DP = dofpart.DistributedProblem
+        self.saved = {n: getattr(DP, n) for n in (
+            "_local_residual", "_jac_operator", "_asm_btlu_pc",
+            "_local_diagonal")}
+        tally = self
+        DP._local_residual = self._timed("residual",
+                                         self.saved["_local_residual"])
+        DP._local_diagonal = self._timed("diagonal",
+                                         self.saved["_local_diagonal"])
+
+        def jac_operator(dp, *a):
+            return tally._timed("jac_action",
+                                tally.saved["_jac_operator"](dp, *a))
+
+        def asm_btlu_pc(dp, *a):
+            Minv = tally._timed("pc_factor",
+                                tally.saved["_asm_btlu_pc"])(dp, *a)
+            return tally._timed("pc_apply", Minv)
+
+        DP._jac_operator = jac_operator
+        DP._asm_btlu_pc = asm_btlu_pc
+        return self
+
+    def __exit__(self, *exc):
+        from proximalgalerkin_torch.parallel import dofpart
+        for n, f in self.saved.items():
+            setattr(dofpart.DistributedProblem, n, f)
+
+    def report(self, secs: float) -> str:
+        rest = secs - sum(self.secs.values())
+        parts = [f"{k} {100 * v / secs:.1f}% ({v:.2f} s over "
+                 f"{self.calls[k]}, {1e3 * v / max(self.calls[k], 1):.3f} "
+                 "ms each)" for k, v in self.secs.items() if self.calls[k]]
+        return ", ".join(parts + [f"Krylov vectors and host reads "
+                                  f"{100 * rest / secs:.1f}% ({rest:.2f} s)"])
+
+
+def dist_record(dev, title, run, counts_of, pinned, checks_of, tally=True):
+    """One record of phase 14 (ii): run(timer) on dev, its counts held to
+    `pinned` and its checks, with its seconds, the tally's shares, peak
+    device memory and launches of the port's kernels (none)."""
+    t = DistTally(dev)
+    if tally:
+        with t:
+            r, secs, timer, launches, peak = timed_run(dev, run)
+    else:
+        r, secs, timer, launches, peak = timed_run(dev, run)
+    counts = counts_of(r)
+    print(f"{title}: {secs:.2f} s, counts {counts}; pinned {pinned}; peak "
+          f"device memory {peak:.3f} GiB; launches {launches}", flush=True)
+    if tally:
+        print(f"  shares: {t.report(secs)}", flush=True)
+    check(pinned is None or counts == pinned, f"{title} counts")
+    for what, ok in checks_of(r):
+        print(f"  {what}: {ok}", flush=True)
+        check(ok, f"{title}: {what}")
+    check(all(v == 0 for v in launches.values()),
+          f"{title} launches none of the port's kernels")
+    return r
+
+
+def dist_obstacle_record(dev, n: int, steps: int, host_ref: bool):
+    """rec_distributed_obstacle_n: the n^2 obstacle, 8 subdomains,
+    asm_btlu under GMRES(120), `steps` LVPP steps, its counts held to the
+    record's prefix; with host_ref, u held to the port's host-LU run of the
+    same steps within 1e-8."""
+    from proximalgalerkin_torch.mesh import rectangle_mesh
+    mesh = rectangle_mesh(n, n, p0=(-1.0, -1.0), p1=(1.0, 1.0))
+    prob, dp = _dist_obstacle(dev, mesh)
+    t0 = time.perf_counter()
+    abt = dp._asm_btlu_setup()
+    setup_s = time.perf_counter() - t0
+    N = prob.space.num_dofs
+    u_sl = prob.space.slice_of("u")
+    nwt = []
+    checks = []
+    if host_ref:
+        t0 = time.perf_counter()
+        ref = prob.solver          # the reference's default: host LU
+        ref.max_iterations, ref.tol, ref.verbose = steps, 1e-50, False
+        rref = ref.solve(torch.zeros(N, dtype=torch.float64, device=dev))
+        print(f"  host-LU reference: Newton {rref.newton_steps}, "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        u_ref = rref.x[u_sl].cpu().numpy()
+
+        def checks(r):
+            d = float(np.abs(dp.gather(r.x)[u_sl] - u_ref).max())
+            return [(f"max |u - u_hostLU| {d:.3e} < 1e-8", d < 1e-8)]
+    else:
+        def checks(r):
+            return []
+
+    def run(tm):
+        r, newton = dist_lvpp(prob, dp, DIST_ASM_OPTS, steps, tm)
+        nwt.append(newton)
+        return r
+
+    pinned = {"newton": REFERENCE_COUNTS[f"distributed_{n}"]["newton"][
+        :steps]}
+    r = dist_record(
+        dev, f"distributed obstacle {n}^2 ({N:,} dofs), 8 subdomains, "
+        f"asm_btlu GMRES(120), {steps} LVPP steps", run,
+        lambda r: {"newton": r.newton_steps}, pinned, checks)
+    its = nwt[0].krylov_its
+    print(f"  GMRES iterations an LVPP step {its}; per-subdomain owned "
+          f"dofs {dp.Bsum} (record {DIST_224_RECORD['per_device_owned']} at "
+          f"224^2), ext_total {dp.ext_total} (record "
+          f"{DIST_224_RECORD['ext_total']}), nb x bs {abt['nb']} x "
+          f"{abt['bs']} (record {DIST_224_RECORD['nb_bs']}), factor "
+          f"{dp.asm_btlu_factor_bytes() / 2**20:.1f} MiB a subdomain, "
+          f"blocking set-up {setup_s:.1f} s", flush=True)
+    if host_ref:
+        dist_action_timings(dev, prob, dp)
+    return dp, abt
+
+
+def dist_action_timings(dev, prob, dp):
+    """ms of one Jacobian action on dp's subdomains (at the LVPP start
+    state, alpha 1) eager and replayed as a CUDA graph, and of one
+    exchange pair (forward ghost gather + reverse fold): per_call_ms, CUDA
+    events around 10 calls."""
+    N = prob.space.num_dofs
+    coeffs = dp._prep_coeffs({
+        "phi": dp.scatter_cellq(prob.problem.coeffs["phi"]),
+        "psi_k": dp.scatter_coeff("psi_k", np.zeros(
+            prob.space.spaces["psi"].num_dofs)),
+        "u_k": dp.scatter_coeff("u_k", np.zeros(
+            prob.space.spaces["u"].num_dofs))})
+    consts = {"alpha": torch.tensor(1.0, dtype=torch.float64, device=dev)}
+    x = dp.scatter(np.zeros(N))
+    v = dp.scatter(np.random.default_rng(SEED).standard_normal(N))
+    out = {}
+    for name, make in (("eager", dp._jac_action),
+                       ("graph", dp._jac_operator)):
+        Av = make(x, coeffs, {}, consts, dp.bc_mask)
+        out[name] = per_call_ms(lambda: Av(v), calls=10)
+    out["exchange"] = per_call_ms(
+        lambda: dp._reverse_fold(dp._forward_ext(v)), calls=10)
+    print(f"  one Jacobian action: eager {out['eager']:.3f} ms, CUDA graph "
+          f"{out['graph']:.3f} ms; one exchange pair {out['exchange']:.3f} "
+          "ms", flush=True)
+    return out
+
+
+def fracture_dist_record(dev, steps: int):
+    """rec_fracture_distributed_30: the fracture continuation at res 0.1,
+    8 subdomains, MINRES on the matrix-free action, its first `steps`
+    load steps held to the record's counts."""
+    from proximalgalerkin_torch.models import fracture
+    ref = REFERENCE_COUNTS["fracture_distributed"]
+    return dist_record(
+        dev, f"distributed fracture res 0.1, 8 subdomains, MINRES/jacobi "
+        f"matrix-free, first {steps} of 29 load steps",
+        lambda tm: fracture.solve_fracture(
+            max_res=0.1, Tmin=0.0,
+            Tmax=float(np.linspace(0.0, 3.0, 30)[steps]),
+            num_load_steps=steps + 1, solver_options=FRACTURE_DIST_OPTS,
+            n_devices=DIST_ND, verbose=False, device=dev, timer=tm),
+        lambda r: {"newton": r.newton_per_step, "lvpp": r.lvpp_per_step,
+                   "retries": r.retries_per_step},
+        {k: v[:steps] for k, v in ref.items()},
+        lambda r: [(f"c in (-0.05, 1.1) ([{r.c.min():.4f}, "
+                    f"{r.c.max():.4f}])",
+                    r.c.min() > -0.05 and r.c.max() < 1.1)])
+
+
+def halo_record(dev, N: int, pinned=None):
+    """fd_obstacle_solve_sharded(N) on 8 strips: its counts (held to
+    `pinned` when given), CG total, seconds and min(u - phi)."""
+    from proximalgalerkin_torch.parallel.halo import \
+        fd_obstacle_solve_sharded
+    c = {}
+    r = dist_record(
+        dev, f"halo-exchange FD obstacle N={N}, 8 strips",
+        lambda tm: fd_obstacle_solve_sharded(N, device=dev,
+                                             n_devices=DIST_ND, counts=c),
+        lambda r: {"outer": r[2], "newton": r[3]},
+        pinned, lambda r: [(f"min(u - phi) {float(np.min(r[0] - r[1])):.3e}"
+                            " >= -1e-8", float(np.min(r[0] - r[1]))
+                            >= -1e-8)], tally=False)
+    print(f"  Newton per outer {c['newton_per_outer']}, CG {c['cg_its']}",
+          flush=True)
+    return r
+
+
+def phase_multiprocess(dev):
+    """Phase 14 (iii): init_multihost on NCCL at world size 1 on the card;
+    the disk-0.25 obstacle with 4 subdomains through that process group
+    (its psums all_gather over NCCL) bit for bit equal to the in-process
+    ShardComm run, both under deterministic algorithms."""
+    import socket
+    from proximalgalerkin_torch.mesh.unstructured import create_disk_mesh
+    from proximalgalerkin_torch.parallel.comm import ShardComm, world_comm
+    from proximalgalerkin_torch.parallel.multihost import (init_multihost,
+                                                           shutdown)
+    print("== phase 14 (iii): multi-process start-up on NCCL", flush=True)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    rank, world, devs = init_multihost(f"127.0.0.1:{port}", 1, 0,
+                                       device="cuda")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        check((rank, world) == (0, 1) and devs == [dev],
+              f"init_multihost gave {(rank, world, devs)}")
+        out = {}
+        for tag, comm in (("in-process", ShardComm(4, dev)),
+                          ("NCCL group", world_comm(4, dev))):
+            prob, dp = _dist_obstacle(dev, create_disk_mesh(0.25), comm)
+            t0 = time.perf_counter()
+            r, _ = dist_lvpp(prob, dp, DIST_LVPP_OPTS, 3)
+            x = dp.gather(r.x)
+            out[tag] = (r.newton_steps, x)
+            print(f"  {tag}: Newton {r.newton_steps}, ||x|| "
+                  f"{np.linalg.norm(x):.15e}, "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+        (c0, x0), (c1, x1) = out.values()
+        check(c0 == c1, "NCCL counts")
+        check(np.array_equal(x0, x1), "NCCL run bit for bit")
+        print("  bit for bit: True", flush=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutdown()
+    n = torch.cuda.device_count()
+    if n >= 2:
+        print(f"  {n} cards: the 2-process x 1-card run is "
+              "tests/test_torch_gpu.py::test_two_card_nccl_lvpp", flush=True)
+    else:
+        print("  one card: only world size 1 ran (NCCL takes one card a "
+              "process)", flush=True)
+
+
+def phase_distributed(dev):
+    """Phase 14 (ii)-(iv)."""
+    print("== phase 14 (ii): the distributed records", flush=True)
+    t0 = time.perf_counter()
+    dist_obstacle_record(dev, 96, 3, host_ref=True)
+    print(f"-- 96^2 record {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    dist_obstacle_record(dev, 224, 1, host_ref=False)
+    print(f"-- 224^2 first step {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    fracture_dist_record(dev, FRACTURE_DIST_STEPS)
+    print(f"-- fracture {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    halo_record(dev, 257, REFERENCE_COUNTS["halo_257"])
+    print(f"-- halo 257 {time.perf_counter() - t0:.1f} s", flush=True)
+    phase_multiprocess(dev)
+
+
 BTLU_LABEL = "gradient 12^2 P2 btlu "
 
 
@@ -2345,6 +2794,8 @@ def case_group(group: str) -> list:
                    for n in MULTIPHASE_CASES])
     if group == "13":
         return [("", n, contact_case, 1e-10) for n in CONTACT_CASES]
+    if group == "14":
+        return [("", n, dist_case, b) for n, b in DIST_CASES.items()]
     return [("", n, schur_case, b) for n, b in SCHUR_CASES.items()]
 
 
@@ -2427,12 +2878,14 @@ class CpuCases:
 
 
 class RecordProcess:
-    """MULTIPHASE_RECORDS[key] in a child process on the same card
-    (`chip_smoke.py --record KEY`). The smoke run starts it for (iv),
-    75 host SuperLU factors, beside the card-against-CPU checks of
-    phases 10 (i), 11 (i) and 12 (i), which time nothing, and waits for it
-    before any timed run. result() waits and returns its readings; stop() ends
-    it if it still runs."""
+    """MULTIPHASE_RECORDS[key], or the eikonal ball (key "eikonal_ball"),
+    in a child process on the same card (`chip_smoke.py --record KEY`).
+    The smoke run starts one for phase 11 (iv), 75 host SuperLU factors,
+    and one for phase 12 (ii)'s ball, host SuperLU too, beside the
+    card-against-CPU checks of phases 10 (i)-14 (i), which time nothing,
+    and waits for them before any other timed run. result() waits and
+    returns the readings of the child's last line, with the lines it
+    printed before as "out"; stop() ends it if it still runs."""
 
     def __init__(self, key: str):
         import os
@@ -2444,7 +2897,8 @@ class RecordProcess:
         out, err = self.proc.communicate(timeout=1200)
         check(self.proc.returncode == 0,
               f"the record process exited {self.proc.returncode}:\n{err}")
-        return json.loads(out.strip().splitlines()[-1])
+        lines = out.strip().splitlines()
+        return json.loads(lines[-1]) | {"out": "\n".join(lines[:-1])}
 
     def stop(self):
         if self.proc.poll() is None:
@@ -2534,7 +2988,8 @@ MATFREE = {"ksp_type": "minres", "pc_type": "jacobi", "mat_type": "matfree",
 # (tests/test_eikonal.py:69-82), its first 5 LVPP steps
 MATFREE_NEWTON_5 = [2, 2, 3, 3, 2]
 SIZES = ("lvpp", "fd", "models", "multiphase", "first_steps",
-         "gradient_lvpp", "eikonal_matfree", "signorini_width")
+         "gradient_lvpp", "eikonal_matfree", "signorini_width",
+         "distributed_224", "fracture_distributed", "halo_fd_1025")
 
 
 def sizes(names=SIZES):
@@ -2553,7 +3008,11 @@ def sizes(names=SIZES):
     MINRES on the matrix-free Jacobian (MATFREE), its first 5 LVPP steps,
     beside LU (eikonal_matfree); the whole Signorini trajectory of the
     half-sphere at res 0.06, with LU, whose first SIGNORINI_WIDTH_STEPS
-    LVPP steps phase 13 (iii) runs (signorini_width)."""
+    LVPP steps phase 13 (iii) runs (signorini_width); the 224^2
+    distributed obstacle's 4 LVPP steps (distributed_224), the
+    distributed fracture's 29 load steps (fracture_distributed) and
+    fd_obstacle_solve_sharded(1025) on 8 strips (halo_fd_1025), of
+    phase 14 (ii)."""
     phase_card()
     dev = torch.device("cuda", 0)
     if "lvpp" in names:
@@ -2607,6 +3066,12 @@ def sizes(names=SIZES):
             {"newton": MATFREE_NEWTON_5},
             lambda r: [(f"max |u - u_LU| {np.abs(r.u - lu.u).max():.2e} < "
                         "1e-6", np.abs(r.u - lu.u).max() < 1e-6)])
+    if "distributed_224" in names:
+        dist_obstacle_record(dev, 224, 4, host_ref=False)
+    if "fracture_distributed" in names:
+        fracture_dist_record(dev, 29)
+    if "halo_fd_1025" in names:
+        halo_record(dev, 1025)
     if "signorini_width" in names:
         from proximalgalerkin_torch.mesh.parametric import create_half_sphere
         from proximalgalerkin_torch.models.signorini import solve_signorini
@@ -2685,7 +3150,12 @@ def main():
     if sys.argv[1:2] == ["--record"]:
         dev = torch.device("cuda", 0)
         torch.cuda.set_device(dev)
-        print(json.dumps(multiphase_record(sys.argv[2], dev)), flush=True)
+        if sys.argv[2] == "eikonal_ball":
+            ball_record(dev)              # a failed check raises
+            print(json.dumps({"key": "eikonal_ball"}), flush=True)
+        else:
+            print(json.dumps(multiphase_record(sys.argv[2], dev)),
+                  flush=True)
         return
     phase_card()
     dev = torch.device("cuda", 0)
@@ -2703,32 +3173,38 @@ def main():
     stamp("phase 8")
     lvpp_a = phase_lvpp(dev)
     stamp("phase 9")
-    # (iv), host SuperLU for about 2 minutes, runs in a child process
-    # beside the card-against-CPU checks, which time nothing, and so do
-    # the CPU halves of those checks, one child a phase; every timed run
-    # starts after they have ended
+    # 11 (iv) and 12 (ii)'s ball, host SuperLU for about 2 minutes each,
+    # run in child processes beside the card-against-CPU checks, which
+    # time nothing, and so do the CPU halves of those checks, one child a
+    # phase; every other timed run starts after they have ended
     multiphase_24 = RecordProcess("multiphase_24")
-    cpu = {g: CpuCases(g) for g in ("10", "11", "12", "13")}
+    ball = RecordProcess("eikonal_ball")
+    cpu = {g: CpuCases(g) for g in ("10", "11", "12", "13", "14")}
     try:
         phase_model_cases(dev, cpu["10"])
         phase_btlu_cases(dev, cpu["11"])
         phase_schur_cases(dev, cpu["12"])
         phase_contact_cases(dev, cpu["13"])
-        stamp("phases 10 (i), 11 (i), 12 (i) and 13 (i)")
+        phase_dist_cases(dev, cpu["14"])
+        stamp("phases 10 (i)-14 (i)")
         rec_24 = multiphase_24.result()
+        rec_ball = ball.result()
     finally:
         multiphase_24.stop()
+        ball.stop()
         for c in cpu.values():
             c.stop()
-    stamp("the wait for phase 11 (iv)")
+    stamp("the wait for phases 11 (iv) and 12 (ii)'s ball")
     phase_model_records(dev)
     stamp("phase 10 (ii)")
     phase_btlu(dev, lvpp_a, rec_24)
     stamp("phase 11 (ii)-(v)")
-    phase_schur(dev)
+    phase_schur(dev, rec_ball)
     stamp("phase 12 (ii)-(iv)")
     phase_contact(dev, fd_res)
     stamp("phase 13 (ii)-(iv)")
+    phase_distributed(dev)
+    stamp("phase 14 (ii)-(iii)")
     print(f"smoke run {time.perf_counter() - T_START:.1f} s", flush=True)
 
     def entry(name, source, replaces, launches, timing, **extra):

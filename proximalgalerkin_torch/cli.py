@@ -33,8 +33,10 @@ multiphase through the fused lagged-btlu Newton; `--opt ksp_type=minres`
 runs eikonal through block-Schur MINRES, and `--opt ksp_type=minres --opt
 pc_type=schur_mg --opt ksp_precision=mixed --opt pc_schur_field0=psi`
 gradient-constraint through the lattice-multigrid Schur preconditioner.
-`--n-devices` (the dof-partitioned multi-device paths of obstacle and
-fracture) is not ported yet (ROADMAP A12) and is refused.
+`--n-devices N` runs obstacle and fracture dof-partitioned over N
+subdomains (parallel/dofpart.py), all of them in this process on
+--device: the reference's multi-device paths, with the subdomains on the
+shard axis of one card (NCCL takes one card a process, parallel/comm.py).
 
 `bench` runs one of the reference bench's workers in this process and
 prints one JSON line with that worker's keys, diagnostics on stderr:
@@ -229,8 +231,9 @@ def _add_obstacle(sub):
     p.add_argument("--refinements", type=int, default=0)
     p.add_argument("--output-dir", type=Path, default=Path("output"))
     p.add_argument("--n-devices", dest="n_devices", type=int, default=0,
-                   help="the dof-partitioned multi-device path: not ported "
-                        "yet (ROADMAP A12)")
+                   help="run the dof-partitioned distributed LVPP path over "
+                        "this many subdomains, all on --device (0 = "
+                        "single-device)")
     _add_device(p)
 
 
@@ -244,13 +247,12 @@ def _run_obstacle(args):
     from .io import write_vtu
     from .mesh.unstructured import create_disk_mesh, refine_uniform
     from .models.obstacle import solve_obstacle_problem
-    if args.n_devices:
-        raise SystemExit("--n-devices: the dof-partitioned multi-device "
-                         "path is not ported to proximalgalerkin_torch yet "
-                         "(ROADMAP A12)")
     mesh = create_disk_mesh(args.disk_res)
     for _ in range(args.refinements):
         mesh = refine_uniform(mesh)
+    if args.n_devices:
+        _run_obstacle_distributed(args, mesh)
+        return
     prob, result = solve_obstacle_problem(
         mesh, polynomial_order=args.polynomial_order,
         alpha_scheme=args.alpha_scheme,
@@ -269,6 +271,43 @@ def _run_obstacle(args):
         write_vtu(out / "u.vtu", mesh, point_data={"u": prob.u(result)})
     print(f"LVPP iterations: {result.iterations}  "
           f"Newton total: {result.total_newton}")
+
+
+def _run_obstacle_distributed(args, mesh):
+    """Obstacle LVPP on the dof-partitioned path over args.n_devices
+    subdomains on --device, driven by the full LVPPSolver (the
+    reference CLI's distributed obstacle, its options and printed
+    line)."""
+    import numpy as np
+    from .models.obstacle import setup_obstacle_problem
+    from .parallel.dofpart import DistributedLvppProblem, DistributedProblem
+    from .solve.lvpp import AlphaScheduler, LVPPSolver
+
+    prob = setup_obstacle_problem(mesh,
+                                  polynomial_order=args.polynomial_order,
+                                  verbose=False, device=args.device)
+    p_ = prob.problem
+    dp = DistributedProblem(p_, n_devices=args.n_devices)
+    dlp = DistributedLvppProblem(dp)
+    dlp.update(coeffs={"phi": dp.scatter_cellq(p_.coeffs["phi"])})
+    result = LVPPSolver(
+        dlp,
+        newton_options={"snes_rtol": 1e-6, "snes_max_it": 50,
+                        "snes_linesearch_type": "none",
+                        "ksp_type": "minres", "pc_type": "jacobi",
+                        "ksp_rtol": 1e-11, "ksp_max_it": 4000},
+        alpha=AlphaScheduler(scheme=args.alpha_scheme
+                             if args.alpha_scheme != "constant"
+                             else "double_exponential",
+                             alpha_max=args.alpha_max),
+        prev_coeffs=lambda xs: {"psi_k": dp.field_to_coeff(xs, "psi"),
+                                "u_k": dp.field_to_coeff(xs, "u")},
+        tol=args.tol_exit, max_iterations=args.max_iterations,
+    ).solve(dp.scatter(np.zeros(prob.space.num_dofs)))
+    print(f"[distributed x{args.n_devices}] LVPP iterations: "
+          f"{result.iterations}  Newton total: {result.total_newton}  "
+          f"converged: {result.converged}  per-device dofs {dp.Bsum} "
+          f"of {prob.space.num_dofs}")
 
 
 def _add_models(sub):
@@ -306,8 +345,10 @@ def _add_models(sub):
     p.add_argument("--Tmax", type=float, default=5.0)
     p.add_argument("--num-load-steps", type=int, default=1001)
     p.add_argument("--n-devices", dest="n_devices", type=int, default=0,
-                   help="the dof-partitioned multi-device continuation: "
-                        "not ported yet (ROADMAP A12)")
+                   help="run the load continuation dof-partitioned over "
+                        "this many subdomains, all on --device (the "
+                        "reference's mpirun execution of "
+                        "fracture_dolfinx.py)")
     _add_device(p)
 
     p = sub.add_parser("multiphase", help="Example 04 Cahn-Hilliard")
@@ -394,14 +435,11 @@ def _run_model(args, opts):
         print(f"LVPP {r.lvpp_iterations}, Newton {sum(r.newton_iterations)}, "
               f"final penetration {r.penetrations[-1]:.3e}")
     elif args.cmd == "fracture":
-        if args.n_devices:
-            raise SystemExit("--n-devices: the dof-partitioned multi-device "
-                             "continuation is not ported to "
-                             "proximalgalerkin_torch yet (ROADMAP A12)")
         from .models.fracture import solve_fracture
         r = solve_fracture(max_res=args.res, Tmin=args.Tmin, Tmax=args.Tmax,
                            num_load_steps=args.num_load_steps,
-                           solver_options=opts, device=dev)
+                           solver_options=opts, device=dev,
+                           n_devices=args.n_devices or None)
         print(f"steps {len(r.load_history)} broken={r.broken}")
     elif args.cmd == "multiphase":
         from .models.multiphase import solve_multiphase

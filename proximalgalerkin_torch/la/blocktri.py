@@ -54,8 +54,10 @@ def _block_inv(M: torch.Tensor) -> torch.Tensor:
     """Dense (batched) block inverse in the factor dtype: LU with partial
     pivoting. The H100 has native f64, so the reference's f32-inverse
     workarounds ('ns' Newton-Schulz, 'schur' recursive elimination) are
-    not needed; `pc_factor_blockinv` selects nothing here."""
-    return torch.linalg.inv(M)
+    not needed; `pc_factor_blockinv` selects nothing here. inv_ex: no host
+    read of a singularity check a block (a singular block gives
+    non-finite entries, as the reference's inverse does)."""
+    return torch.linalg.inv_ex(M)[0]
 
 
 def _check_blockinv(blockinv: str):
@@ -424,30 +426,42 @@ def bt_factor(D, L, U):
     """Block-Thomas factorization: returns (Minv, T) with
     M_k = D_k - L_{k-1} Minv_{k-1} U_{k-1} (Schur recursion) and
     T_k = Minv_k U_k; nb dependent steps of one block inverse and two
-    (bs, bs) products each."""
-    nb = D.shape[0]
+    (bs, bs) products each. D (..., nb, bs, bs), L and U
+    (..., nb - 1, bs, bs): leading axes are a batch of systems factored
+    together (the Schwarz subdomains of parallel/dofpart.py)."""
+    nb = D.shape[-3]
     Minv = torch.empty_like(D)
     T = torch.empty_like(U)
     with _exact_matmul():
-        Minv[0] = _block_inv(D[0])
+        Minv[..., 0, :, :] = _block_inv(D[..., 0, :, :])
         for k in range(1, nb):
-            T[k - 1] = Minv[k - 1] @ U[k - 1]
-            Minv[k] = _block_inv(D[k] - L[k - 1] @ T[k - 1])
+            T[..., k - 1, :, :] = Minv[..., k - 1, :, :] @ U[..., k - 1, :, :]
+            Minv[..., k, :, :] = _block_inv(
+                D[..., k, :, :] - L[..., k - 1, :, :] @ T[..., k - 1, :, :])
     return Minv, T
 
 
+def _mv(A, v):
+    """Block times vector: (bs, bs) @ (bs,), or a batch of each."""
+    return A @ v if v.dim() == 1 else (A @ v.unsqueeze(-1)).squeeze(-1)
+
+
 def bt_apply(Minv, T, L, b_blocks):
-    """Forward/back substitution for one flat rhs laid out as (nb, bs)."""
-    nb = b_blocks.shape[0]
+    """Forward/back substitution for one flat rhs laid out as (nb, bs), or
+    a batch (..., nb, bs) through factors with the same leading axes."""
+    nb = b_blocks.shape[-2]
     y = torch.empty_like(b_blocks)
     x = torch.empty_like(b_blocks)
     with _exact_matmul():
-        y[0] = b_blocks[0]
+        y[..., 0, :] = b_blocks[..., 0, :]
         for k in range(1, nb):
-            y[k] = b_blocks[k] - L[k - 1] @ (Minv[k - 1] @ y[k - 1])
-        x[nb - 1] = Minv[nb - 1] @ y[nb - 1]
+            y[..., k, :] = b_blocks[..., k, :] - _mv(
+                L[..., k - 1, :, :], _mv(Minv[..., k - 1, :, :],
+                                         y[..., k - 1, :]))
+        x[..., nb - 1, :] = _mv(Minv[..., nb - 1, :, :], y[..., nb - 1, :])
         for k in range(nb - 2, -1, -1):
-            x[k] = Minv[k] @ y[k] - T[k] @ x[k + 1]
+            x[..., k, :] = (_mv(Minv[..., k, :, :], y[..., k, :])
+                            - _mv(T[..., k, :, :], x[..., k + 1, :]))
     return x
 
 

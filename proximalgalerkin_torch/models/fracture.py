@@ -17,8 +17,9 @@ T in linspace(Tmin, Tmax, num_load_steps) driving u = +/-T on the two top
 edges (:140-159,207-214), the adaptive-alpha failure-retry machine
 (:220-284) and broken-specimen termination (:289-294).
 
-The dof-partitioned multi-device continuation (n_devices) is not ported
-yet (ROADMAP A12).
+With n_devices the whole continuation runs dof-partitioned over that many
+subdomains (parallel/dofpart.py), as the reference's mpirun execution of
+the same loop does.
 """
 
 from __future__ import annotations
@@ -96,15 +97,18 @@ def solve_fracture(
     either package resumes in the other). progress_jsonl: one JSON line
     appended per load step.
 
-    n_devices: the dof-partitioned multi-device continuation; not ported
-    yet (ROADMAP A12), so anything but None raises.
+    n_devices: run the whole continuation dof-partitioned over that many
+      subdomains (parallel/dofpart.py), all on `device` — load-step BC
+      updates, the failure-retry machine, and the ||c_k - c_iter||
+      functional on the shard axis, the reference's MPI-parallel
+      execution of the same loop (fracture_dolfinx.py:220-264 under
+      mpirun). Newton directions use the distributed MINRES with the
+      configured pc_type (a direct pc maps to restricted additive
+      Schwarz under GMRES). Checkpoints hold the global vectors, so a
+      distributed run resumes a host run's checkpoint and the other way
+      round.
 
     timer: a PhaseTimer for the Newton solver's phases."""
-    if n_devices is not None:
-        raise NotImplementedError(
-            "solve_fracture(n_devices=...): the dof-partitioned "
-            "multi-device continuation is not ported to "
-            "proximalgalerkin_torch yet (ROADMAP A12)")
     device = torch.device(device)
     f64 = torch.float64
     tagged = tagged if tagged is not None else create_crack_mesh(max_res)
@@ -174,20 +178,52 @@ def solve_fracture(
     opts.update(solver_options or {})
 
     u_sl, c_sl, psi_sl = (space.slice_of(n) for n in ("u", "c", "psi"))
-    newton = NewtonSolver(problem, SolverOptions(opts), timer=timer)
-    l2c_fn = form.make_functional(
-        lambda x, u, gu, c, gc, k: (u["c"] - c["c_iter"]) ** 2)
+    l2c_integrand = lambda x, u, gu, c, gc, k: (u["c"] - c["c_iter"]) ** 2
+    alpha_t = lambda a: torch.tensor(a, dtype=f64, device=device)
 
-    def update_state(x_prev, x_iter, a):
-        problem.update(
-            coeffs={"c_prev": x_prev[c_sl], "psi_iter": x_iter[psi_sl],
-                    "c_iter": x_iter[c_sl]},
-            consts={"alpha": torch.tensor(a, dtype=f64, device=device)})
+    if n_devices is None:
+        newton = NewtonSolver(problem, SolverOptions(opts), timer=timer)
+        l2c_fn = form.make_functional(l2c_integrand)
 
-    def on_device(a):
-        return torch.as_tensor(np.asarray(a), dtype=f64, device=device)
+        def update_state(x_prev, x_iter, a):
+            problem.update(
+                coeffs={"c_prev": x_prev[c_sl], "psi_iter": x_iter[psi_sl],
+                        "c_iter": x_iter[c_sl]},
+                consts={"alpha": alpha_t(a)})
 
-    x = on_device(space.zeros())
+        def to_shard(a):
+            return torch.as_tensor(np.asarray(a), dtype=f64, device=device)
+
+        from_shard = lambda v: v.cpu().numpy()
+        set_bcs = None
+        l2c = lambda xx: l2c_fn(xx, dict(problem.coeffs), {})
+        max_c = lambda xx: float(xx[c_sl].max())
+        allclose = lambda a, b: bool(torch.allclose(a, b))
+    else:
+        from ..parallel.dofpart import (DistributedLvppProblem,
+                                        DistributedProblem)
+        dp = DistributedProblem(problem, n_devices=n_devices)
+        dlp = DistributedLvppProblem(dp)
+        newton = dlp.make_newton_solver(SolverOptions(opts), timer=timer)
+        l2c_dist = dp.make_functional(l2c_integrand)
+        to_shard = lambda v: dp.scatter(np.asarray(v))
+        from_shard = dp.gather
+        set_bcs = dp.update_bcs
+
+        def update_state(x_prev, x_iter, a):
+            dlp.update(
+                coeffs={"c_prev": dp.field_to_coeff(x_prev, "c"),
+                        "psi_iter": dp.field_to_coeff(x_iter, "psi"),
+                        "c_iter": dp.field_to_coeff(x_iter, "c")},
+                consts={"alpha": alpha_t(a)})
+
+        l2c = lambda xx: l2c_dist(xx, dict(dlp.coeffs), dict(dlp.consts))
+        max_c = lambda xx: float(dp.comm.pmax(
+            dp.field_to_coeff(xx, "c").amax(-1)))
+        allclose = lambda a, b: int(dp.comm.psum(
+            (~torch.isclose(a, b)).sum(-1))) == 0
+
+    x = to_shard(space.zeros())
     x_prev = x        # previous load step
     alpha = 1.0
     result = FractureResult(u=np.zeros(V.num_dofs), c=np.zeros(V.num_dofs))
@@ -195,8 +231,8 @@ def solve_fracture(
     start_step = 0
     if checkpoint_path is not None and Path(checkpoint_path).exists():
         ck = LVPPCheckpoint.load(checkpoint_path)
-        x = on_device(ck.x)
-        x_prev = on_device(ck.x_k)
+        x = to_shard(ck.x)
+        x_prev = to_shard(ck.x_k)
         alpha = float(ck.alpha_prev_raw)
         start_step = int(ck.step)
         result.newton_per_step = list(ck.newton_steps)
@@ -211,7 +247,7 @@ def solve_fracture(
 
     def _save_ck(step):
         LVPPCheckpoint(
-            x=x.cpu().numpy(), x_k=x_prev.cpu().numpy(), iteration=0,
+            x=from_shard(x), x_k=from_shard(x_prev), iteration=0,
             alpha_prev_raw=alpha, step=step,
             newton_steps=result.newton_per_step,
             observables={"load": result.load_history,
@@ -235,7 +271,10 @@ def solve_fracture(
         if verbose:
             rank_print(f"Solving for T = {float(T):.4f} "
                        f"({step / max(len(loads), 1) * 100:.1f}%)")
-        problem.set_bc_arrays(*space.global_bc_arrays(make_bcs(float(T))))
+        bc_idx, bc_vals = space.global_bc_arrays(make_bcs(float(T)))
+        problem.set_bc_arrays(bc_idx, bc_vals)
+        if set_bcs is not None:
+            set_bcs(bc_idx, bc_vals)
 
         # the reference resets the proximal parameter at every load step
         # (fracture_dolfinx.py:215 `alpha.value = 1`)
@@ -259,8 +298,7 @@ def solve_fracture(
                 continue
             x = res.x
             lvpp_count += 1
-            nrm = float(np.sqrt(max(float(
-                l2c_fn(x, dict(problem.coeffs), {})), 0.0)))
+            nrm = float(np.sqrt(max(float(l2c(x)), 0.0)))
             if verbose:
                 rank_print(f"  k={k} newton={res.iterations} alpha={alpha} "
                            f"||c_k - c_(k-1)|| = {nrm:.3e}")
@@ -273,16 +311,15 @@ def solve_fracture(
             x_iter = x
             k += 1
 
-        max_c = float(x[c_sl].max())
         result.load_history.append(float(T))
         result.newton_per_step.append(newton_count)
         result.lvpp_per_step.append(lvpp_count)
         result.retries_per_step.append(nfail)
-        result.max_damage_history.append(max_c)
+        result.max_damage_history.append(max_c(x))
         _emit(step, T, newton_count, lvpp_count)
 
         # broken-specimen detection (:289-294)
-        if k == 1 and torch.allclose(x, x_prev) and step > 0:
+        if k == 1 and allclose(x, x_prev) and step > 0:
             result.broken = True
             rank_print("Specimen broken — terminating continuation")
             break
@@ -292,6 +329,7 @@ def solve_fracture(
         if checkpoint_path is not None and (step + 1) % checkpoint_every == 0:
             _save_ck(step + 1)
 
-    result.u = x[u_sl].cpu().numpy()
-    result.c = x[c_sl].cpu().numpy()
+    x_host = from_shard(x)
+    result.u = np.asarray(x_host[u_sl])
+    result.c = np.asarray(x_host[c_sl])
     return result

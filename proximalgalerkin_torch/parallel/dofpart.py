@@ -1,0 +1,1434 @@
+"""Dof-partitioned distributed FEM: owned and ghost dofs on a shard axis,
+in PyTorch. The port of the reference package's parallel/dofpart.py.
+
+The rebuild of the reference's scaling mechanism — MPI domain
+decomposition with PETSc ghost vectors (src/lvpp/problem.py:56-66:
+ghostUpdate INSERT/FORWARD before assembly, ADD/REVERSE after). Every
+dof-indexed vector is partitioned: per-subdomain memory is O(N/nd).
+
+Design (the reference's, on the shard axis of parallel/comm.py):
+  * Cells are strip-ordered (lexicographic by centroid) and block-assigned
+    to nd subdomains, so each subdomain's cells touch a localized set of
+    dofs.
+  * Per field, scalar dofs are renumbered by FIRST TOUCH in
+    subdomain-major traversal; ownership = contiguous blocks of the new
+    numbering; ghosts of a subdomain live at most `k` blocks away (k is
+    measured).
+  * A distributed vector is an (nloc, Bsum) tensor: row i holds
+    subdomain lo + i's owned blocks [field0 | field1 | ...].
+  * A forward exchange builds, per field, the extended vector of the
+    2k+1 surrounding owned blocks with `ring` shifts (INSERT/FORWARD);
+    assembly runs the port's VolumeForm / FacetForm cores ONCE for all
+    local subdomains: the (nloc, cpd) cells are flattened and their
+    extended-coordinate gathers offset by shard * ext_total, so one core
+    call scatters into nloc stacked extended vectors; the reverse fold
+    sends each non-centre segment back to its owner and adds
+    (ADD/REVERSE). Global dots are `psum`s.
+  * The Jacobian action is the jvp of the extended-space residual with
+    the exchanges outside it: fold(jvp(core, ext(x), ext(v))). The
+    exchanges are linear, so this is the tangent arithmetic the
+    reference's jax.jvp through ppermute does, and nothing
+    differentiates through a collective.
+  * Newton and Krylov loops read the host once per Newton step and once
+    per chunk of Krylov iterations (la/loop.while_loop); GMRES once per
+    chunk of Arnoldi steps and once per restart cycle.
+
+Host setup (partition, rewritten gathers, BC masks, io maps) is plain
+numpy, copied from the reference and bit-identical to it.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Mapping, Optional
+
+import numpy as np
+import torch
+from torch.func import jvp, vmap
+
+from ..la.blocktri import bt_apply, bt_factor
+from ..la.loop import while_loop
+from .comm import ShardComm
+
+
+# ----------------------------------------------------------- host-side setup
+
+@dataclass
+class FieldPartition:
+    """First-touch renumbering + block ownership of one scalar-dof space."""
+    new_of_old: np.ndarray   # (num_scalar_dofs,) old scalar dof -> new index
+    Bs: int                  # owned block size, scalar units
+    m: int                   # value size (components per scalar dof)
+    k: int                   # halo width in subdomain blocks
+
+    @property
+    def B(self) -> int:      # owned block size, component units
+        return self.Bs * self.m
+
+    @property
+    def ext_size(self) -> int:
+        return (2 * self.k + 1) * self.B
+
+
+def _first_touch(dofmap_ordered_flat: np.ndarray, ns: int) -> np.ndarray:
+    """new_of_old for scalar dofs: first-touch order along the flattened
+    subdomain-major cell traversal; untouched dofs numbered last."""
+    uniq, first = np.unique(dofmap_ordered_flat, return_index=True)
+    new_of_old = np.full(ns, -1, dtype=np.int64)
+    new_of_old[uniq[np.argsort(first)]] = np.arange(len(uniq))
+    missing = np.flatnonzero(new_of_old < 0)
+    new_of_old[missing] = len(uniq) + np.arange(len(missing))
+    return new_of_old
+
+
+def _build_field_partition(chains, ns: int, m: int, nd: int,
+                           valid=None) -> FieldPartition:
+    """chains: list of (nd, X_i) arrays of scalar dofs in subdomain-major
+    traversal order (cells first, then facet entities); `valid`: matching
+    list of bool masks — padded entities are excluded from the halo-width
+    measurement (their gather indices are later clamped to owned dofs)."""
+    flat = np.concatenate([c.reshape(nd, -1) for c in chains], axis=1)
+    if valid is None:
+        vmask = np.ones_like(flat, dtype=bool)
+    else:
+        vmask = np.concatenate([v.reshape(nd, -1) for v in valid], axis=1)
+    # first-touch over VALID entries only — a padded entity row repeats an
+    # arbitrary real entity and must not claim its dofs for the pad shard
+    new_of_old = _first_touch(flat.reshape(-1)[vmask.reshape(-1)], ns)
+    Bs = max(-(-ns // nd), 1)
+    dev = np.arange(nd)[:, None]
+    ns_new = new_of_old[flat]
+    dist = np.abs(ns_new // Bs - dev)
+    k = int(dist[vmask].max()) if vmask.any() else 0
+    return FieldPartition(new_of_old=new_of_old, Bs=Bs, m=m, k=k)
+
+
+def _rewrite_gather(gidx_old: np.ndarray, offset: int, part: FieldPartition,
+                    ext_off: int, nd: int, valid=None) -> np.ndarray:
+    """Old global-mixed component indices (nd, cpd, nl, m) -> extended-local
+    coordinates [ext_off, ext_off + part.ext_size). Entries of padded
+    entities (valid=False rows) are clamped to the subdomain's own block
+    start — their wdet is zero, so the gathered value never contributes,
+    but the index must stay inside the halo window."""
+    old_comp = gidx_old.astype(np.int64) - offset
+    old_scalar, comp = old_comp // part.m, old_comp % part.m
+    ns = part.new_of_old[old_scalar]
+    block = ns // part.Bs
+    pos = ns - block * part.Bs
+    dev = np.arange(nd).reshape((nd,) + (1,) * (gidx_old.ndim - 1))
+    dblock = block - (dev - part.k)
+    ext = ext_off + dblock * part.B + pos * part.m + comp
+    if valid is not None:
+        own_start = ext_off + part.k * part.B
+        vmask = np.broadcast_to(
+            valid.reshape(valid.shape + (1,) * (gidx_old.ndim - valid.ndim)),
+            gidx_old.shape)
+        ext = np.where(vmask, ext, own_start)
+        dblock = np.where(vmask, dblock, part.k)
+    if np.any(dblock < 0) or np.any(dblock > 2 * part.k):
+        raise AssertionError("ghost outside halo window")  # k was measured
+    return ext.astype(np.int32)
+
+
+def _ring_perm(nd: int, s: int):
+    """The reference's ppermute pairs (src, dst) of a ring shift s: shard
+    i receives shard (i + s) mod nd — ShardComm.ring(x, s)."""
+    return [((i + s) % nd, i) for i in range(nd)]
+
+
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+class DistributedProblem:
+    """Dof-partitioned twin of a volume-form NonlinearProblem (or of a
+    CompositeProblem: volume + facet legs).
+
+    comm: the ShardComm of the subdomains (default n_devices subdomains in
+    this process on the problem's device). Every dof-indexed state is an
+    (nloc, Bsum) tensor on comm.device.
+    """
+
+    def __init__(self, problem, comm: Optional[ShardComm] = None, *,
+                 n_devices: int = 8):
+        self.problem = problem
+        self.comm = comm = comm or ShardComm(n_devices, problem.device)
+        self.device = comm.device
+        self.facet_forms = list(getattr(problem, "facet_forms", []))
+        form = getattr(problem, "vol_form", problem.form)
+        self.form = form
+        self.dtype = form.dtype
+        space = problem.space          # full block space (space_all)
+        self.space = space
+        self.nd = nd = comm.nd
+        self.nloc = comm.nloc
+        mesh = form.mesh
+        nc = mesh.num_cells
+        if nc < nd:
+            raise ValueError(f"ncells={nc} < n_devices={nd}")
+
+        # ---- strip-order cells by centroid, block-partition, pad
+        cent = mesh.points[mesh.cells[:, :mesh.ref_cell.num_vertices]].mean(1)
+        order = np.lexsort(tuple(cent[:, i] for i in range(cent.shape[1])))
+        cpd = -(-nc // nd)
+        padded = np.empty(nd * cpd, dtype=np.int64)
+        padded[:nc] = order
+        padded[nc:] = order[-1]          # repeat a real cell; wdet zeroed
+        self.ordered_cells = padded.reshape(nd, cpd)
+        self.cpd = cpd
+        pad_mask = np.zeros(nd * cpd, dtype=bool)
+        pad_mask[nc:] = True
+        self.cell_pad = pad_mask.reshape(nd, cpd)
+        cell_dev = np.empty(nc, dtype=np.int64)
+        cell_dev[order] = np.minimum(np.arange(nc) // cpd, nd - 1)
+
+        # ---- facet legs: each facet is owned by its parent cell's
+        # subdomain (the entity-ownership rule of the reference's
+        # shared-facet ghost mode); per-subdomain counts are padded to the
+        # max with wdet-zeroed repeats
+        self._facet_meta = []
+        for ff in self.facet_forms:
+            parents = mesh.facet_cells[np.asarray(ff.facets), 0]
+            fdev = cell_dev[parents]
+            by_dev = [np.flatnonzero(fdev == d) for d in range(nd)]
+            fpd = max(1, max(len(b) for b in by_dev))
+            sel = np.zeros((nd, fpd), dtype=np.int64)
+            val = np.zeros((nd, fpd), dtype=bool)
+            for d, b in enumerate(by_dev):
+                if len(b):
+                    sel[d, :len(b)] = b
+                    sel[d, len(b):] = b[-1] if len(b) else 0
+                    val[d, :len(b)] = True
+                # subdomains with no facets of this leg keep facet 0 with
+                # valid=False: zero wdet + clamped gather indices
+            self._facet_meta.append({"sel": sel, "valid": val, "fpd": fpd})
+
+        # ---- per-field partitions (solution fields): first-touch chains
+        # from the volume traversal plus every facet leg that references
+        # the field (trace fields are touched only by facet legs)
+        self.parts: Dict[str, FieldPartition] = {}
+        for f in space.names:
+            fs = space.spaces[f]
+            m = fs.value_size
+            chains, valids = [], []
+            if f in form.space.names:
+                dm = fs.dofmap.astype(np.int64)[self.ordered_cells]
+                chains.append(dm.reshape(nd, -1))
+                valids.append(np.broadcast_to(
+                    ~self.cell_pad[:, :, None], dm.shape).reshape(nd, -1))
+            for ff, meta in zip(self.facet_forms, self._facet_meta):
+                if f not in ff.space.names:
+                    continue
+                gi = np.asarray(ff._gather_host[f])
+                sc = ((gi.astype(np.int64) - space.offsets[f]) // m)
+                sc_dev = sc[meta["sel"].reshape(-1)].reshape((nd, -1))
+                chains.append(sc_dev)
+                nper = sc.shape[1] * sc.shape[2]
+                valids.append(np.repeat(meta["valid"].reshape(nd, -1),
+                                        nper, axis=1))
+            if not chains:
+                raise ValueError(f"field {f} untouched by any leg")
+            self.parts[f] = _build_field_partition(
+                chains, fs.num_scalar_dofs, m, nd, valid=valids)
+
+        # subdomain-local solution layout: concatenated owned blocks
+        self.loc_off: Dict[str, int] = {}
+        off = 0
+        for f in space.names:
+            self.loc_off[f] = off
+            off += self.parts[f].B
+        self.Bsum = off
+
+        # extended-vector layout (all fields concatenated)
+        self.ext_off: Dict[str, int] = {}
+        eoff = 0
+        for f in space.names:
+            self.ext_off[f] = eoff
+            eoff += self.parts[f].ext_size
+        self.ext_total = eoff
+
+        # ---- coefficient partitions: share when dofmap+m match a field
+        self.coeff_parts: Dict[str, FieldPartition] = {}
+        self.coeff_shared_field: Dict[str, Optional[str]] = {}
+        for name, fs in form.coeff_spaces.items():
+            shared = None
+            for f in space.names:
+                ffs = space.spaces[f]
+                if (fs.value_size == ffs.value_size
+                        and fs.dofmap.shape == ffs.dofmap.shape
+                        and np.array_equal(fs.dofmap, ffs.dofmap)):
+                    shared = f
+                    break
+            if shared is not None:
+                self.coeff_parts[name] = self.parts[shared]
+            else:
+                dm = fs.dofmap.astype(np.int64)[self.ordered_cells]
+                vm = np.broadcast_to(~self.cell_pad[:, :, None], dm.shape)
+                self.coeff_parts[name] = _build_field_partition(
+                    [dm.reshape(nd, -1)], fs.num_scalar_dofs,
+                    fs.value_size, nd, valid=[vm.reshape(nd, -1)])
+            self.coeff_shared_field[name] = shared
+
+        # ---- subdomain cell data with rewritten indices
+        cd = form.cell_data
+        oc = self.ordered_cells.reshape(-1)
+        blocks = lambda a: a[oc].reshape((nd, cpd) + a.shape[1:])
+        xq = blocks(_host(cd["xq"]))
+        wdet = blocks(_host(cd["wdet"])).copy()
+        wdet[self.cell_pad] = 0.0
+        G = blocks(_host(cd["G"]))
+        gather, coeffi = {}, {}
+        cell_valid = ~self.cell_pad
+        for f in form.space.names:
+            gather[f] = _rewrite_gather(
+                blocks(form._gather_host[f]), space.offsets[f],
+                self.parts[f], self.ext_off[f], nd, valid=cell_valid)
+        for name in form.coeff_spaces:
+            # coefficient ext vectors stand alone: no ext offset
+            coeffi[name] = _rewrite_gather(
+                blocks(_host(cd["coeff_idx"][name])), 0,
+                self.coeff_parts[name], 0, nd, valid=cell_valid)
+        # host copies of the volume ext-coordinate gathers: the asm_btlu
+        # subdomain blocking is built from these
+        self._gather_host = gather
+        self._coeff_gather_host = coeffi
+        # consistency of the vol-form's own offsets with the block space
+        for f in form.space.names:
+            if form.space.offsets[f] != space.offsets[f]:
+                raise ValueError("volume fields must precede trace fields "
+                                 "in the block space")
+
+        E = self.ext_total
+        loc = comm.local
+        self.data = {
+            "xq": self._flat(xq[loc]), "wdet": self._flat(wdet[loc]),
+            "G": self._flat(G[loc]),
+            "gather_idx": {f: self._flat_idx(v[loc], E)
+                           for f, v in gather.items()},
+            "coeff_idx": {n: self._flat_idx(
+                v[loc], self.coeff_parts[n].ext_size)
+                for n, v in coeffi.items()},
+        }
+        # (nloc, cpd, L) extended coordinates of each cell's local slots,
+        # fields concatenated (the subdomain matrices of asm_*)
+        self._li = torch.as_tensor(np.concatenate(
+            [gather[f][loc].reshape(self.nloc, cpd, -1)
+             for f in form.space.names], axis=2).astype(np.int64),
+            device=self.device)
+
+        # ---- facet-leg data (rewritten into extended coordinates)
+        self._facet_gather_host = []
+        self.facet_data = []
+        for ff, meta in zip(self.facet_forms, self._facet_meta):
+            selr = meta["sel"].reshape(-1)
+            fpd = meta["fpd"]
+
+            def take(a):
+                a = _host(a)
+                return a[selr].reshape((nd, fpd) + a.shape[1:])
+
+            fd = ff.facet_data
+            fwdet = take(fd["wdet"]).copy()
+            fwdet[~meta["valid"]] = 0.0
+            fgather, li_parts = {}, []
+            for f in ff.space.names:
+                ext = _rewrite_gather(take(ff._gather_host[f]),
+                                      space.offsets[f], self.parts[f],
+                                      self.ext_off[f], nd,
+                                      valid=meta["valid"])
+                fgather[f] = ext
+                li_parts.append(ext.reshape(nd, fpd, -1))
+            self._facet_gather_host.append(fgather)
+            self.facet_data.append({
+                "xq": self._flat(take(fd["xq"])[loc]),
+                "wdet": self._flat(fwdet[loc]),
+                "normals": self._flat(take(fd["normals"])[loc]),
+                "tab": {f: self._flat(take(v)[loc])
+                        for f, v in fd["tab"].items()},
+                "gtab": {f: self._flat(take(v)[loc])
+                         for f, v in fd["gtab"].items()},
+                "gather_idx": {f: self._flat_idx(v[loc], E)
+                               for f, v in fgather.items()},
+                "li": self._flat_idx(
+                    np.concatenate(li_parts, axis=2)[loc], E),
+            })
+
+        # ---- BC masks incl. identity rows for pad dofs
+        self.update_bcs(problem._bc_idx_host, _host(problem.bc_vals))
+
+        self.consts = dict(problem.consts)
+        self._cache: Dict = {}
+
+        # scatter/gather maps for host IO (old global mixed <-> sharded)
+        self._dest = self._build_dest()
+
+    # ------------------------------------------------------ device layout
+
+    def _flat(self, a: np.ndarray) -> torch.Tensor:
+        """(nloc, n, ...) host array -> (nloc * n, ...) float tensor."""
+        a = np.ascontiguousarray(a)
+        return torch.as_tensor(a.reshape((-1,) + a.shape[2:]),
+                               dtype=self.dtype, device=self.device)
+
+    def _flat_idx(self, ext: np.ndarray, size: int) -> torch.Tensor:
+        """(nloc, n, ...) extended-local indices -> (nloc * n, ...)
+        indices into the nloc stacked extended vectors of length size."""
+        sh = np.arange(self.nloc).reshape((-1,) + (1,) * (ext.ndim - 1))
+        out = ext.astype(np.int64) + sh * size
+        return torch.as_tensor(out.reshape((-1,) + ext.shape[2:]),
+                               device=self.device)
+
+    def update_bcs(self, bc_idx, bc_vals):
+        """(Re)build the BC mask/value arrays from old-numbered global bc
+        dof indices — load-continuation models (fracture's u = +/-T on the
+        top edges, fracture_dolfinx.py:140-159) change Dirichlet VALUES
+        and the driver calls this once per load step. Pad scalar dofs
+        keep identity rows with value 0."""
+        space = self.space
+        nd = self.nd
+        bc_mask = np.zeros((nd, self.Bsum), dtype=bool)
+        bc_val = np.zeros((nd, self.Bsum))
+        bci = np.asarray(bc_idx).astype(np.int64)
+        bcv = np.asarray(bc_vals)
+        for f in space.names:
+            p = self.parts[f]
+            o = space.offsets[f]
+            n_f = space.spaces[f].num_dofs
+            sel = (bci >= o) & (bci < o + n_f)
+            oldc = bci[sel] - o
+            osc, comp = oldc // p.m, oldc % p.m
+            ns = p.new_of_old[osc]
+            dev = ns // p.Bs
+            pos = self.loc_off[f] + (ns - dev * p.Bs) * p.m + comp
+            bc_mask[dev, pos] = True
+            bc_val[dev, pos] = bcv[sel]
+            # pad scalar dofs [Ns, nd*Bs): identity rows, value 0
+            ns_all = space.spaces[f].num_scalar_dofs
+            pad_ns = np.arange(ns_all, nd * p.Bs)
+            if len(pad_ns):
+                pdev = pad_ns // p.Bs
+                ppos = (self.loc_off[f]
+                        + ((pad_ns - pdev * p.Bs) * p.m)[:, None]
+                        + np.arange(p.m)[None, :])
+                bc_mask[pdev[:, None], ppos] = True
+        self._bc_mask_host = bc_mask
+        loc = self.comm.local
+        self.bc_mask = torch.as_tensor(bc_mask[loc], device=self.device)
+        self.bc_val = torch.as_tensor(bc_val[loc], dtype=self.dtype,
+                                      device=self.device)
+        self.bc_mask_f = self.bc_mask.to(self.dtype)
+
+    # ------------------------------------------------------------- host IO
+
+    def _build_dest(self) -> np.ndarray:
+        """dest[i] = flat sharded position of old global mixed index i."""
+        space = self.space
+        dest = np.empty(space.num_dofs, dtype=np.int64)
+        for f in space.names:
+            p = self.parts[f]
+            o = space.offsets[f]
+            n_f = space.spaces[f].num_dofs
+            oldc = np.arange(n_f, dtype=np.int64)
+            osc, comp = oldc // p.m, oldc % p.m
+            ns = p.new_of_old[osc]
+            dev = ns // p.Bs
+            pos = self.loc_off[f] + (ns - dev * p.Bs) * p.m + comp
+            dest[o:o + n_f] = dev * self.Bsum + pos
+        return dest
+
+    def _local_rows(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(a[self.comm.local]),
+                               dtype=self.dtype, device=self.device)
+
+    def scatter(self, x_old) -> torch.Tensor:
+        """Old-numbered global vector (numpy, the reference's ordering) ->
+        this process's (nloc, Bsum) shards."""
+        flat = np.zeros(self.nd * self.Bsum)
+        flat[self._dest] = _host(x_old)
+        return self._local_rows(flat.reshape(self.nd, self.Bsum))
+
+    def gather(self, x_shard) -> np.ndarray:
+        """(nloc, Bsum) shards -> the old-numbered global vector (numpy),
+        on every process."""
+        full = self.comm.gather_shards(x_shard)
+        return full.reshape(-1).cpu().numpy()[self._dest]
+
+    def scatter_coeff(self, name: str, vec_old) -> torch.Tensor:
+        """Old-numbered coefficient dof vector -> (nloc, Bc) shards."""
+        p = self.coeff_parts[name]
+        vec = _host(vec_old)
+        flat = np.zeros(self.nd * p.B)
+        oldc = np.arange(len(vec), dtype=np.int64)
+        osc, comp = oldc // p.m, oldc % p.m
+        ns = p.new_of_old[osc]
+        flat[ns * p.m + comp] = vec
+        return self._local_rows(flat.reshape(self.nd, p.B))
+
+    def scatter_cellq(self, arr) -> torch.Tensor:
+        """Per-(cell, quadrature-point) coefficient -> (nloc, cpd, ...)
+        cell blocks."""
+        a = _host(arr)
+        out = a[self.ordered_cells.reshape(-1)].reshape(
+            (self.nd, self.cpd) + a.shape[1:])
+        return self._local_rows(out)
+
+    def scatter_facetq(self, arr, leg: int = 0) -> torch.Tensor:
+        """Per-(facet, quadrature-point) coefficient of facet leg `leg` ->
+        (nloc, fpd, ...) facet blocks (padded entries repeat; wdet=0 kills
+        them)."""
+        meta = self._facet_meta[leg]
+        a = _host(arr)
+        out = a[meta["sel"].reshape(-1)].reshape(
+            (self.nd, meta["fpd"]) + a.shape[1:])
+        return self._local_rows(out)
+
+    def field_slice(self, name: str):
+        """The columns of field `name`'s owned block in an (nloc, Bsum)
+        distributed vector."""
+        o = self.loc_off[name]
+        return slice(o, o + self.parts[name].B)
+
+    def field_to_coeff(self, x_shard, field: str) -> torch.Tensor:
+        """A field's dofs as the (nloc, Bc) coefficient of a coefficient
+        space sharing its partition (the psi_k <- psi update of the LVPP
+        loop, obstacle_pg.py:226) — subdomain-local slicing."""
+        return x_shard[:, self.field_slice(field)].contiguous()
+
+    # --------------------------------------------------------- collectives
+
+    def _halo(self, block, k: int):
+        """The 2k+1 owned blocks around each shard, in shard order:
+        (nloc, B) -> (nloc, (2k+1) B)."""
+        return torch.cat([self.comm.ring(block, j - k)
+                          for j in range(2 * k + 1)], dim=1)
+
+    def _forward_ext(self, x):
+        """Ghost gather: (nloc, Bsum) -> (nloc, ext_total). INSERT/FORWARD."""
+        return torch.cat([self._halo(x[:, self.field_slice(f)],
+                                     self.parts[f].k)
+                          for f in self.space.names], dim=1)
+
+    def _reverse_fold(self, F_ext):
+        """Ghost scatter-add: (nloc, ext_total) -> (nloc, Bsum).
+        ADD/REVERSE: segment j of shard i belongs to shard i + (j - k)."""
+        outs = []
+        for f in self.space.names:
+            p = self.parts[f]
+            base = self.ext_off[f]
+            acc = F_ext[:, base + p.k * p.B:base + (p.k + 1) * p.B]
+            for j in range(2 * p.k + 1):
+                s = j - p.k
+                if s == 0:
+                    continue
+                seg = F_ext[:, base + j * p.B:base + (j + 1) * p.B]
+                acc = acc + self.comm.ring(seg, -s)
+            outs.append(acc)
+        return torch.cat(outs, dim=1)
+
+    def _prep_coeffs(self, coeffs):
+        """Distributed coefficients -> the flat arrays the form's cores
+        read: FE coefficients (nloc, Bc) as their stacked extended vectors,
+        cell-quadrature arrays (nloc, cpd, ...) with the cell axes
+        flattened."""
+        cv = {}
+        for name, arr in (coeffs or {}).items():
+            if name in self.coeff_parts:
+                cv[name] = self._halo(arr, self.coeff_parts[name].k
+                                      ).reshape(-1)
+            else:
+                cv[name] = arr.reshape((-1,) + tuple(arr.shape[2:]))
+        return cv
+
+    @staticmethod
+    def _flat_facet(fcoeffs):
+        return {k: v.reshape((-1,) + tuple(v.shape[2:]))
+                for k, v in (fcoeffs or {}).items()}
+
+    def _restrict_owned(self, z_ext):
+        """Owned (s=0) segments of an extended vector: (nloc, ext_total) ->
+        (nloc, Bsum) WITHOUT ghost folding — the 'restricted'
+        prolongation of restricted additive Schwarz."""
+        outs = []
+        for f in self.space.names:
+            p = self.parts[f]
+            lo = self.ext_off[f] + p.k * p.B
+            outs.append(z_ext[:, lo:lo + p.B])
+        return torch.cat(outs, dim=1)
+
+    def _pdot(self, a, b):
+        """Global dot of two (nloc, Bsum) vectors: per-shard sums, psum."""
+        return self.comm.psum((a * b).sum(-1))
+
+    # ------------------------------------------------ extended-space cores
+
+    def _ext_residual(self, x_ext, cv, fcv, consts,
+                      jacobian_variant=False):
+        """Assembled residual of every local subdomain's cells and facets
+        in its extended space: (nloc, ext_total) -> (nloc, ext_total)."""
+        n = self.nloc * self.ext_total
+        xf = x_ext.reshape(-1)
+        core = (self.form._jacobian_residual_core if jacobian_variant
+                else self.form._residual_core)
+        F = core(xf, cv, consts, self.data, n)
+        for ff, fd in zip(self.facet_forms, self.facet_data):
+            fcore = (ff._jacobian_residual_core if jacobian_variant
+                     else ff._residual_core)
+            F = F + fcore(xf, fcv, consts, fd, n)
+        return F.reshape(self.nloc, self.ext_total)
+
+    def _local_residual(self, x, cv, fcv, consts, bcm, bcv):
+        F = self._reverse_fold(self._ext_residual(self._forward_ext(x), cv,
+                                                  fcv, consts))
+        return torch.where(bcm, x - bcv, F)
+
+    def _graphed(self, fn, like):
+        """fn, an (nloc, Bsum) -> (nloc, Bsum) operator fixed for a Newton
+        step (a Jacobian action, a Schwarz preconditioner), as one CUDA
+        graph on a CUDA device with the subdomains in one process: the
+        hundreds of small kernels of an action through torch.func launch
+        as one replay on a static copy of the argument. The kernels are
+        those of fn, so the result is fn's. Elsewhere fn itself."""
+        if not (like.is_cuda and self.comm.world == 1):
+            return fn
+        static_in = like.clone()
+        side = torch.cuda.Stream(like.device)
+        side.wait_stream(torch.cuda.current_stream(like.device))
+        with torch.cuda.stream(side):
+            fn(static_in)                     # warm-up outside the capture
+        torch.cuda.current_stream(like.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            static_out = fn(static_in)
+
+        def run(v):
+            static_in.copy_(v)
+            graph.replay()
+            return static_out.clone()
+
+        # the graph reads the tensors fn's closure holds (the linearization
+        # point, the factors): they live as long as the replay does
+        run.graph, run.fn = graph, fn
+        return run
+
+    def _jac_action(self, x, cv, fcv, consts, bcm):
+        """v -> J(x) v with the symmetric bc treatment: the exchanges
+        outside torch.func.jvp, fold(jvp(core, ext(x), ext(w)))."""
+        x_ext = self._forward_ext(x)
+
+        def f(z):
+            return self._ext_residual(z, cv, fcv, consts, True)
+
+        def Av(v):
+            w = torch.where(bcm, 0.0, v)
+            t = jvp(f, (x_ext,), (self._forward_ext(w),))[1]
+            y = self._reverse_fold(t)
+            return torch.where(bcm, v, y)
+
+        return Av
+
+    def _jac_operator(self, x, cv, fcv, consts, bcm):
+        """_jac_action, replayed as a CUDA graph on a CUDA device with the
+        subdomains in one process (_graphed)."""
+        return self._graphed(self._jac_action(x, cv, fcv, consts, bcm), x)
+
+    def _local_diagonal(self, x, cv, fcv, consts, bcm):
+        n = self.nloc * self.ext_total
+        x_ext = self._forward_ext(x).reshape(-1)
+        d_ext = self.form._diagonal_core(x_ext, cv, consts, self.data, n)
+        for ff, fd in zip(self.facet_forms, self.facet_data):
+            Ae = ff._element_matrices_core(x_ext, fcv, consts, fd)
+            dloc = torch.diagonal(Ae, dim1=1, dim2=2)
+            d_ext = d_ext.index_add(0, fd["li"].reshape(-1),
+                                    dloc.reshape(-1))
+        d = self._reverse_fold(d_ext.reshape(self.nloc, self.ext_total))
+        return torch.where(bcm, 1.0, d)
+
+    # -------------------------------------------------- distributed Krylov
+    # Minv may be an inverse-diagonal tensor or a callable (the matrix-free
+    # Schur and the Schwarz preconditioners)
+
+    # Krylov iterations a host read: an iteration past convergence inside
+    # a masked chunk still pays its Jacobian action, the costliest part of
+    # an iteration, so the chunk is short (la/loop.while_loop)
+    KRYLOV_CHUNK = 8
+
+    @staticmethod
+    def _apply_pc(Minv, r):
+        return Minv(r) if callable(Minv) else Minv * r
+
+    def _cg(self, Av, b, Minv, rtol, atol, maxiter):
+        pdot = self._pdot
+        z = self._apply_pc(Minv, b)
+        rz = pdot(b, z)
+        bnorm = torch.sqrt(pdot(b, b))
+        stop = torch.clamp(rtol * bnorm, min=atol) ** 2
+
+        def cond(s):
+            i, x, r, z, p_, rz = s
+            return (i < maxiter) & (pdot(r, r) > stop)
+
+        def body(s):
+            i, x, r, z, p_, rz = s
+            Ap = Av(p_)
+            a_ = rz / pdot(p_, Ap)
+            x = x + a_ * p_
+            r = r - a_ * Ap
+            z = self._apply_pc(Minv, r)
+            rz2 = pdot(r, z)
+            p_ = z + (rz2 / rz) * p_
+            return i + 1, x, r, z, p_, rz2
+
+        i0 = torch.zeros((), dtype=torch.int64, device=b.device)
+        return while_loop(cond, body,
+                          (i0, torch.zeros_like(b), b, z, z, rz),
+                          self.KRYLOV_CHUNK)[1]
+
+    def _minres(self, Av, b, Minv, rtol, atol, maxiter):
+        """Preconditioned MINRES (Paige–Saunders) with psum inner products
+        — the distributed twin of la.krylov's minres."""
+        pdot = self._pdot
+        dt, dev = b.dtype, b.device
+        eps = torch.finfo(dt).eps
+        y = self._apply_pc(Minv, b)
+        beta1 = torch.sqrt(torch.clamp(pdot(b, y), min=0.0))
+        s0 = lambda v: torch.tensor(v, dtype=dt, device=dev)
+        zero = torch.zeros_like(b)
+        state = (torch.zeros((), dtype=torch.int64, device=dev), zero, b, b,
+                 zero, zero, beta1, beta1, beta1, s0(0.0), s0(-1.0),
+                 s0(0.0), s0(0.0), s0(0.0),
+                 torch.zeros((), dtype=torch.bool, device=dev))
+        target = torch.clamp(rtol * beta1, min=atol)
+
+        def cond(s):
+            return (s[0] < maxiter) & ~s[-1]
+
+        def body(s):
+            (it, x, r1, r2, w, w2, phibar, rnorm, beta, betal, cs, sn,
+             dbar, epsln, done) = s
+            v = (1.0 / torch.clamp(beta, min=eps)) * self._apply_pc(Minv, r2)
+            yv = Av(v)
+            yv = torch.where(it >= 1,
+                             yv - (beta / torch.clamp(betal, min=eps)) * r1,
+                             yv)
+            alfa = pdot(v, yv)
+            yv = yv - (alfa / torch.clamp(beta, min=eps)) * r2
+            z = self._apply_pc(Minv, yv)
+            beta_n = torch.sqrt(torch.clamp(pdot(yv, z), min=0.0))
+            delta = cs * dbar + sn * alfa
+            gbar = sn * dbar - cs * alfa
+            epsln_n = sn * beta_n
+            dbar_n = -cs * beta_n
+            gamma = torch.clamp(torch.sqrt(gbar ** 2 + beta_n ** 2), min=eps)
+            cs_n = gbar / gamma
+            sn_n = beta_n / gamma
+            phi = cs_n * phibar
+            phibar_n = sn_n * phibar
+            wn = (v - epsln * w2 - delta * w) / gamma
+            xn = x + phi * wn
+            return (it + 1, xn, r2, yv, wn, w, phibar_n, phibar_n, beta_n,
+                    beta, cs_n, sn_n, dbar_n, epsln_n, phibar_n <= target)
+
+        return while_loop(cond, body, state, self.KRYLOV_CHUNK)[1]
+
+    def _gmres(self, Av, b, Minv, rtol, atol, maxiter, restart=30):
+        """Right-preconditioned restarted GMRES(m) with psum inner
+        products — the distributed Krylov for the nonsymmetric restricted
+        additive Schwarz preconditioners (PETSc's gmres+asm recipe).
+        Classical Gram-Schmidt against the whole basis on the device (the
+        reference's projections of one w on every basis vector, one psum);
+        the (m+1)-long Hessenberg column comes to the host once an Arnoldi
+        step, where the Givens rotations, the residual estimate and the
+        stopping test run in f64 numpy, in the reference's order of
+        operations. A step starts only while the column residual exceeds
+        the target and the global count is below maxiter, PETSc's
+        per-iteration cap. Returns the solution; `self.last_krylov_its`
+        holds the iteration count."""
+        import scipy.linalg as sla
+        m = restart
+        eps = 1e-300
+        pdot = self._pdot
+        dt, dev = b.dtype, b.device
+        target = max(float(rtol) * float(np.sqrt(max(float(pdot(b, b)),
+                                                      0.0))), float(atol))
+
+        def cycle(x0, it0):
+            r = b - Av(x0)
+            beta = float(np.sqrt(max(float(pdot(r, r)), 0.0)))
+            V = torch.zeros((m + 1,) + tuple(b.shape), dtype=dt, device=dev)
+            V[0] = r / max(beta, eps)
+            R = np.eye(m)
+            g = np.zeros(m + 1)
+            g[0] = beta
+            cs, sn = np.zeros(m), np.zeros(m)
+            j = 0
+            while j < m and abs(g[j]) > target and it0 + j < maxiter:
+                w = Av(self._apply_pc(Minv, V[j]))
+                h = self.comm.psum((V * w).sum(-1).T)            # (m+1,)
+                w = w - torch.einsum("k,k...->...", h, V)
+                hj1_t = torch.sqrt(torch.clamp(pdot(w, w), min=0.0))
+                V[j + 1] = w / torch.clamp(hj1_t, min=eps)
+                hcol = torch.cat([h, hj1_t[None]]).cpu().numpy()
+                hj1 = hcol[-1]
+                hcol = hcol[:m + 1].copy()
+                hcol[j + 1] = hj1
+                for k in range(j):
+                    t = cs[k] * hcol[k] + sn[k] * hcol[k + 1]
+                    hcol[k + 1] = -sn[k] * hcol[k] + cs[k] * hcol[k + 1]
+                    hcol[k] = t
+                d = np.sqrt(hcol[j] ** 2 + hj1 ** 2)
+                cs[j] = hcol[j] / max(d, eps) if d > eps else 1.0
+                sn[j] = hj1 / max(d, eps) if d > eps else 0.0
+                Rjj = cs[j] * hcol[j] + sn[j] * hj1
+                # diagonal guard: breakdown/converged columns get 1.0 so
+                # the back-substitution stays finite (their g is ~0)
+                hcol[j] = Rjj if abs(Rjj) > eps else 1.0
+                R[:, j] = hcol[:m]
+                g[j + 1] = -sn[j] * g[j]
+                g[j] = cs[j] * g[j]
+                j += 1
+            # the j live columns enter the solution: g[j] is the residual
+            # entry, untouched columns have identity diagonal and zero rhs
+            g_solve = np.where(np.arange(m) < j, g[:m], 0.0)
+            y = sla.solve_triangular(R, g_solve, lower=False)
+            z = torch.einsum("k,k...->...", torch.as_tensor(
+                y, dtype=dt, device=dev), V[:m])
+            return x0 + self._apply_pc(Minv, z), abs(g[j]), j
+
+        x = torch.zeros_like(b)
+        it = 0
+        while it < maxiter:
+            x, rn, jc = cycle(x, it)
+            it += jc
+            # a cycle that advanced 0 iterations can make no progress
+            if rn <= target or not np.isfinite(rn) or jc == 0:
+                break
+        self.last_krylov_its = it
+        return x
+
+    # ------------------------------------------------------------- public
+
+    def residual(self, x_shard, coeffs: Optional[Mapping] = None,
+                 consts: Optional[Mapping] = None,
+                 facet_coeffs: Optional[Mapping] = None) -> torch.Tensor:
+        return self._local_residual(
+            x_shard, self._prep_coeffs(coeffs),
+            self._flat_facet(facet_coeffs), dict(consts or self.consts),
+            self.bc_mask, self.bc_val)
+
+    def jacobian_action(self, x_shard, v_shard, coeffs=None, consts=None,
+                        facet_coeffs=None):
+        return self._jac_operator(
+            x_shard, self._prep_coeffs(coeffs),
+            self._flat_facet(facet_coeffs), dict(consts or self.consts),
+            self.bc_mask)(v_shard)
+
+    def norm(self, v_shard) -> float:
+        return float(torch.sqrt(self._pdot(v_shard, v_shard)))
+
+    def make_functional(self, fn):
+        """Distributed twin of VolumeForm.make_functional: the same
+        pointwise integrand on the subdomains' rewritten cell data
+        (ghost-extended solution, one sum a subdomain, psum; pad cells
+        contribute 0 through their zeroed wdet). Returns
+        functional(x_shard, coeffs, consts) -> 0-dim tensor; coefficient
+        values are distributed (scatter_coeff / field_to_coeff /
+        scatter_cellq), exactly as for residual()."""
+        form = self.form
+
+        def functional(x_shard, coeffs=None, consts=None):
+            data = self.data
+            x_ext = self._forward_ext(x_shard).reshape(-1)
+            vals, grads, cv, cg = form._fields(
+                x_ext, self._prep_coeffs(coeffs), data)
+            xq, args, cnames, gnames = form._point_args(data, vals, grads,
+                                                        cv, cg)
+            call, split = form._point_fn(cnames, gnames,
+                                         dict(consts or self.consts), fn,
+                                         canon=False)
+            vq = vmap(lambda xp, *rest: call(xp, *split(rest)))(xq, *args)
+            part = (vq.reshape(data["wdet"].shape) * data["wdet"])
+            return self.comm.psum(part.reshape(self.nloc, -1).sum(-1))
+
+        return functional
+
+    # ------------------------------------------------- fused Newton solve
+
+    def newton_solver(self, ksp: str = "minres", rtol: float = 1e-6,
+                      atol: float = 1e-50, max_it: int = 100,
+                      ksp_rtol: float = 1e-10, ksp_atol: float = 0.0,
+                      ksp_max_it: int = 20000, damping: float = 1.0):
+        """Distributed Newton: residual -> Jacobi-preconditioned CG/MINRES
+        direction -> damped update, one host read a Newton step. Returns
+        fn(x_shard, coeffs, consts, facet_coeffs) -> (x, n_iters, fnorm,
+        f0) as device tensors."""
+
+        def fn(x_shard, coeffs=None, consts=None, facet_coeffs=None):
+            cl = self._prep_coeffs(coeffs)
+            fcl = self._flat_facet(facet_coeffs)
+            consts_ = dict(consts or self.consts)
+            bcm, bcv = self.bc_mask, self.bc_val
+
+            def res(z):
+                return self._local_residual(z, cl, fcl, consts_, bcm, bcv)
+
+            x = torch.where(bcm, bcv, x_shard)
+            F = res(x)
+            f0 = torch.sqrt(self._pdot(F, F))
+            stop = torch.clamp(rtol * f0, min=atol)
+
+            def cond(s):
+                it, x, F, fn_ = s
+                return (it < max_it) & (fn_ > stop) & torch.isfinite(fn_)
+
+            def body(s):
+                it, x, F, _ = s
+                Av = self._jac_operator(x, cl, fcl, consts_, bcm)
+                d = self._local_diagonal(x, cl, fcl, consts_, bcm)
+                dinv = torch.where(torch.abs(d) > 1e-300, 1.0 / d, 1.0)
+                Minv = torch.abs(dinv) if ksp == "minres" else dinv
+                solver = self._minres if ksp == "minres" else self._cg
+                dx = solver(Av, -F, Minv, ksp_rtol, ksp_atol, ksp_max_it)
+                x = x + damping * dx
+                F = res(x)
+                return it + 1, x, F, torch.sqrt(self._pdot(F, F))
+
+            it0 = torch.zeros((), dtype=torch.int64, device=self.device)
+            it, x, F, fn_ = while_loop(cond, body, (it0, x, F, f0), chunk=1)
+            return x, it, fn_, f0
+
+        return fn
+
+    # ---------------------------------------- matrix-free Schur (block PC)
+
+    def _schur_pc_matfree(self, Av, diag, m0, bc1, cheb_steps=4,
+                          power_iters=8, lmin_ratio=30.0):
+        """Matrix-free distributed twin of la.schur.make_schur_pc: the
+        ex40.cpp:261-281 recipe with A01/A10/A11 actions expressed as
+        masked full-Jacobian actions (each Sv = two Jacobian actions
+        through the exchanges) and a fixed Chebyshev polynomial as the
+        approximate S-solve. Inner products are psum'd."""
+        pdot = self._pdot
+        m1 = 1.0 - m0
+        d0 = m0 * diag + m1
+        dinv0 = torch.where(torch.abs(d0) > 1e-300, 1.0 / d0, 1.0)
+        s0 = torch.sign(self.comm.psum((m0 * diag).sum(-1)))
+        s0 = torch.where(s0 == 0, 1.0, s0)
+
+        def Sv(v):
+            t = Av(m1 * v)
+            t0 = m0 * t * dinv0
+            s_ = m1 * Av(t0)
+            return s0 * (s_ - m1 * t) + 2.0 * bc1 * v
+
+        # diagonal-scale proxy for diag(S)^{-1} (see the reference)
+        dS = m1 / torch.clamp(torch.abs(diag), min=1e-300)
+        n = diag.shape[-1]
+        v = m1 * (1.0 + 0.5 * torch.sin(torch.arange(
+            n, dtype=diag.dtype, device=diag.device)))
+        v = v / torch.clamp(torch.sqrt(pdot(v, v)), min=1e-300)
+        lam = torch.ones((), dtype=diag.dtype, device=diag.device)
+        for _ in range(power_iters):
+            w = dS * Sv(v)
+            lam = torch.sqrt(pdot(w, w))
+            v = w / torch.clamp(lam, min=1e-300)
+        lmax = 1.15 * lam
+        lmin = lmax / lmin_ratio
+
+        def cheb(b):
+            d_ = (lmax + lmin) / 2.0
+            c_ = (lmax - lmin) / 2.0
+            alpha = 1.0 / d_
+            p_ = dS * b
+            z = alpha * p_
+            r = b - alpha * Sv(p_)
+            for _ in range(cheb_steps - 1):
+                beta = (c_ * alpha / 2.0) ** 2
+                alpha = 1.0 / (d_ - beta / alpha)
+                p_ = dS * r + beta * p_
+                z = z + alpha * p_
+                r = r - alpha * Sv(p_)
+            return z
+
+        def Minv(r):
+            return m0 * torch.abs(dinv0) * r + cheb(m1 * r)
+
+        return Minv
+
+    # ------------------------------------- restricted additive Schwarz PCs
+
+    def _touched_keep(self, bcm_ext, dtype):
+        """kf (nloc, E): 1 on extended dofs the subdomain's cells touch
+        that are not Dirichlet, else 0."""
+        E = self.ext_total
+        sh = torch.arange(self.nloc, device=self.device)[:, None, None]
+        touched = torch.zeros((self.nloc, E), dtype=dtype,
+                              device=self.device)
+        touched = touched.index_put((sh.expand_as(self._li), self._li),
+                                    torch.ones((), dtype=dtype,
+                                               device=self.device)
+                                    .expand(self._li.shape),
+                                    accumulate=True)
+        keep = (touched > 0.0) & (bcm_ext <= 0.5)
+        return keep, keep.to(dtype)
+
+    def _asm_lu_pc(self, x, cv, consts):
+        """Restricted additive Schwarz with a DENSE subdomain factor: the
+        extended subdomain matrix of each local subdomain, assembled from
+        its own cells (untouched and Dirichlet extended dofs get identity
+        rows), LU-factored in one batched call; applied as gather ->
+        subdomain solve -> owned restriction. O(ext_total^2) memory a
+        subdomain: the small-size strong PC."""
+        E, nloc, cpd = self.ext_total, self.nloc, self.cpd
+        Ae = self.form._element_matrices_core(
+            self._forward_ext(x).reshape(-1), cv, consts, self.data)
+        L = Ae.shape[-1]
+        li = self._li
+        sh = torch.arange(nloc, device=self.device)[:, None, None, None]
+        A = torch.zeros((nloc, E, E), dtype=Ae.dtype, device=self.device)
+        A = A.index_put((sh.expand(nloc, cpd, L, L), li[:, :, :, None]
+                         .expand(nloc, cpd, L, L), li[:, :, None, :]
+                         .expand(nloc, cpd, L, L)),
+                        Ae.reshape(nloc, cpd, L, L), accumulate=True)
+        _, kf = self._touched_keep(self._forward_ext(self.bc_mask_f),
+                                   Ae.dtype)
+        A = A * kf[:, :, None] * kf[:, None, :] + torch.diag_embed(1.0 - kf)
+        lu, piv = torch.linalg.lu_factor(A)
+
+        def Minv(r):
+            z = torch.linalg.lu_solve(lu, piv, self._forward_ext(r)[..., None])
+            return self._restrict_owned(z[..., 0])
+
+        return self._graphed(Minv, x)
+
+    def _asm_btlu_setup(self):
+        """Host-precomputed BFS level-set blocking of each EXTENDED
+        subdomain dof graph — the scalable replacement for the dense RAS
+        factor (O(nb*bs^2) memory where asm_lu is O(ext_total^2)).
+
+        Per subdomain: BFS levels of its own cells' connectivity over the
+        ext index space (edges never skip a level -> block-tridiagonal,
+        la/blocktri.bfs_level_sets); ext dofs its cells never touch are
+        identity rows packed into blocks with spare capacity. All
+        subdomains share padded (nb, bs).
+
+        Returns dict with: blk/loc (nloc, ext_total) and pad (nloc, npad)
+        D-diagonal fill positions (nb*bs*bs: dropped), on the device, and
+        static nb, bs."""
+        if "asm_bt" in self._cache:
+            return self._cache["asm_bt"]
+        import scipy.sparse as sp
+
+        from ..la.blocktri import bfs_level_sets
+        nd, E = self.nd, self.ext_total
+        li_dev = np.concatenate(
+            [self._gather_host[f].reshape(nd, self.cpd, -1)
+             for f in self.form.space.names], axis=2)     # (nd, cpd, L)
+        levs, counts_all = [], []
+        for d in range(nd):
+            li = li_dev[d].astype(np.int64)               # (cpd, L)
+            L = li.shape[1]
+            rows = np.repeat(li, L, axis=1).reshape(-1)
+            cols = np.tile(li, (1, L)).reshape(-1)
+            A = sp.coo_matrix(
+                (np.ones(len(rows), np.int8), (rows, cols)),
+                shape=(E, E)).tocsr()
+            A = (A + A.T).tocsr()
+            touched = np.zeros(E, dtype=bool)
+            touched[np.unique(li)] = True
+            lev = bfs_level_sets(A)
+            lev[~touched] = -1                            # assign below
+            levs.append(lev)
+            counts_all.append(np.bincount(lev[touched]))
+        nb = max(len(c) for c in counts_all)
+        bs = max(int(c.max()) for c in counts_all)
+        # pack untouched (identity-row) ext dofs into spare capacity;
+        # every ext dof needs a slot, so grow bs until nb*bs >= E
+        if nb * bs < E:
+            bs += -(-(E - nb * bs) // nb)
+        blks = np.empty((nd, E), np.int64)
+        locs = np.empty((nd, E), np.int64)
+        pads = []
+        for d in range(nd):
+            lev = levs[d]
+            counts = np.zeros(nb, np.int64)
+            c0 = counts_all[d]
+            counts[:len(c0)] = c0
+            blk = lev.copy()
+            free = np.flatnonzero(lev < 0)
+            # round-robin fill of blocks with spare capacity
+            spare = bs - counts
+            tgt_blocks = np.repeat(np.arange(nb), spare)[:len(free)]
+            assert len(tgt_blocks) == len(free), "capacity accounting"
+            blk[free] = tgt_blocks
+            order = np.lexsort((np.arange(E), blk))
+            loc = np.empty(E, np.int64)
+            cum = np.concatenate(
+                [[0], np.cumsum(np.bincount(blk, minlength=nb))])
+            loc[order] = np.arange(E) - cum[blk[order]]
+            blks[d] = blk
+            locs[d] = loc
+            # D-diagonal fill of slots no dof occupies
+            cnt = np.bincount(blk, minlength=nb)
+            pad = [k * bs * bs + p * bs + p
+                   for k in range(nb) for p in range(cnt[k], bs)]
+            pads.append(np.asarray(pad, np.int64))
+        npad = max(1, max(len(p) for p in pads))
+        pad_arr = np.full((nd, npad), nb * bs * bs, np.int64)  # drop
+        for d, p in enumerate(pads):
+            pad_arr[d, :len(p)] = p
+        loc_ = self.comm.local
+        on = lambda a: torch.as_tensor(np.ascontiguousarray(a[loc_]),
+                                       device=self.device)
+        self._cache["asm_bt"] = {"blk": on(blks), "loc": on(locs),
+                                 "pad": on(pad_arr), "nb": int(nb),
+                                 "bs": int(bs)}
+        return self._cache["asm_bt"]
+
+    def asm_btlu_factor_bytes(self, factor_dtype: str = "f64") -> int:
+        """Bytes a subdomain's block-tridiagonal factor holds: Minv
+        (nb, bs, bs), T and the L blocks (nb - 1, bs, bs) each."""
+        abt = self._asm_btlu_setup()
+        nb, bs = abt["nb"], abt["bs"]
+        return (3 * nb - 2) * bs * bs * (4 if factor_dtype == "f32" else 8)
+
+    def _asm_btlu_pc(self, x, cv, consts, factor_dtype):
+        """Restricted additive Schwarz with a BLOCK-TRIDIAGONAL subdomain
+        factor over the BFS level blocking of _asm_btlu_setup: every local
+        subdomain's equilibrated extended matrix scattered into its
+        (nb, bs, bs) D/L/U blocks, block-Thomas factored for all
+        subdomains at once (a leading batch axis), applied as gather ->
+        block solve -> owned restriction."""
+        abt = self._asm_btlu_setup()
+        nb, bs = abt["nb"], abt["bs"]
+        blk, locp, padp = abt["blk"], abt["loc"], abt["pad"]
+        E, nloc, cpd = self.ext_total, self.nloc, self.cpd
+        Ae = self.form._element_matrices_core(
+            self._forward_ext(x).reshape(-1), cv, consts, self.data)
+        L = Ae.shape[-1]
+        Ae = Ae.reshape(nloc, cpd, L, L)
+        li = self._li
+        dt = Ae.dtype
+        keep, kf = self._touched_keep(self._forward_ext(self.bc_mask_f), dt)
+        # symmetric equilibration of the kept subdomain rows (unit-
+        # magnitude diagonal -> unpivoted block elimination is safe)
+        shc = torch.arange(nloc, device=self.device)[:, None, None]
+        dloc = torch.diagonal(Ae, dim1=2, dim2=3)
+        dvec = torch.zeros((nloc, E), dtype=dt, device=self.device)
+        dvec = dvec.index_put((shc.expand_as(li), li), dloc,
+                              accumulate=True)
+        s_eq = torch.where(keep & (torch.abs(dvec) > 1e-300),
+                           1.0 / torch.sqrt(torch.abs(
+                               torch.where(keep, dvec, 1.0))), 1.0)
+        w = kf * s_eq
+        wl = torch.gather(w, 1, li.reshape(nloc, -1)).reshape(li.shape)
+        vals = (Ae * wl[..., :, None] * wl[..., None, :]).reshape(nloc, -1)
+        bsq = bs * bs
+        take = lambda a: torch.gather(a, 1, li.reshape(nloc, -1)).reshape(
+            li.shape)
+        bl, lo = take(blk), take(locp)
+        br, bc_ = bl[..., :, None], bl[..., None, :]
+        ii, jj = lo[..., :, None], lo[..., None, :]
+        ND, NL = nb * bsq, (nb - 1) * bsq
+        tgt_d = torch.where(br == bc_, br * bsq + ii * bs + jj, ND)
+        tgt_l = torch.where(br == bc_ + 1, bc_ * bsq + ii * bs + jj, NL)
+        tgt_u = torch.where(bc_ == br + 1, br * bsq + ii * bs + jj, NL)
+
+        def scatter(tgt, size):
+            out = torch.zeros((nloc, size + 1), dtype=dt, device=self.device)
+            return out.scatter_add(1, tgt.reshape(nloc, -1), vals)
+
+        D = scatter(tgt_d, ND)
+        D = D.scatter_add(1, blk * bsq + locp * bs + locp, 1.0 - kf)
+        D = D.scatter_add(1, padp, torch.ones_like(padp, dtype=dt))[:, :ND]
+        Lm = scatter(tgt_l, NL)[:, :NL]
+        Um = scatter(tgt_u, NL)[:, :NL]
+        fdt = torch.float32 if factor_dtype == "f32" else dt
+        Lf = Lm.reshape(nloc, nb - 1, bs, bs).to(fdt)
+        Mbt, Tbt = bt_factor(D.reshape(nloc, nb, bs, bs).to(fdt), Lf,
+                              Um.reshape(nloc, nb - 1, bs, bs).to(fdt))
+        pos = blk * bs + locp
+
+        def Minv(r):
+            r_ext = self._forward_ext(r)
+            bb = torch.zeros((nloc, nb * bs), dtype=fdt, device=self.device)
+            bb = bb.scatter(1, pos, (s_eq * r_ext).to(fdt))
+            z = bt_apply(Mbt, Tbt, Lf, bb.reshape(nloc, nb, bs))
+            z_ext = s_eq * torch.gather(z.reshape(nloc, -1), 1, pos).to(dt)
+            return self._restrict_owned(z_ext)
+
+        return self._graphed(Minv, x)
+
+    # --------------------------- fused Newton with linesearch + PC choice
+
+    def fused_lvpp_newton(self, ksp: str = "minres", pc: str = "jacobi",
+                          linesearch: str = "none", max_it: int = 50,
+                          ksp_max_it: int = 20_000,
+                          schur_field0: Optional[str] = None,
+                          cheb_steps: int = 4, power_iters: int = 8,
+                          lmin_ratio: float = 30.0,
+                          factor_dtype: str = "f64",
+                          gmres_restart: int = 120):
+        """The distributed Newton the LVPP driver consumes: one host read
+        a Newton step, l2/bt line searches (the reference's distributed
+        twins) and jacobi, matrix-free block-Schur, dense-RAS (asm_lu) or
+        block-tridiagonal-RAS (asm_btlu, the scalable strong PC)
+        preconditioning. Returns fn(x_shard, coeffs, consts,
+        facet_coeffs, rtol, atol, ksp_rtol, ksp_atol, damping) ->
+        (x, it, fnorm, f0, ls_ok) as device tensors; fn.krylov_its is the
+        Krylov iteration count of the last call for GMRES (None
+        otherwise)."""
+        if pc == "asm_btlu":
+            self._asm_btlu_setup()
+        m0 = torch.zeros(self.Bsum, dtype=self.dtype, device=self.device)
+        if pc == "schur":
+            f0name = schur_field0 or self.space.names[0]
+            for name in str(f0name).split(","):
+                m0[self.field_slice(name.strip())] = 1.0
+        dev = self.device
+
+        def fn(x_shard, coeffs=None, consts=None, facet_coeffs=None,
+               rtol=1e-8, atol=1e-50, ksp_rtol=1e-10, ksp_atol=0.0,
+               damping=1.0):
+            cl = self._prep_coeffs(coeffs)
+            fcl = self._flat_facet(facet_coeffs)
+            consts_ = dict(consts or self.consts)
+            bcm, bcv = self.bc_mask, self.bc_val
+            bc1 = self.bc_mask_f * (1.0 - m0)
+            fn.krylov_its = 0 if ksp == "gmres" else None
+
+            def res(z):
+                return self._local_residual(z, cl, fcl, consts_, bcm, bcv)
+
+            def pnorm(v):
+                return torch.sqrt(self._pdot(v, v))
+
+            def fsq(z):
+                F = res(z)
+                return self._pdot(F, F)
+
+            def do_linesearch(x, dx, fn_):
+                true = torch.ones((), dtype=torch.bool, device=dev)
+                if linesearch == "none":
+                    return x + damping * dx, true
+                if linesearch == "l2":
+                    lam = damping
+                    f_old = fn_ * fn_
+                    f_mid = fsq(x + 0.5 * lam * dx)
+                    f_new = fsq(x + lam * dx)
+                    dF = (3.0 * f_new - 4.0 * f_mid + f_old) / lam
+                    d2F = 4.0 * (f_new - 2.0 * f_mid + f_old) / lam ** 2
+                    lam_t = torch.where(torch.abs(d2F) > 1e-300,
+                                        lam - dF / d2F, 0.5 * lam)
+                    lam_t = torch.where(torch.isfinite(lam_t) & (lam_t > 0.0),
+                                        lam_t, 0.5 * lam)
+                    xn = x + lam_t * dx
+                    return xn, torch.isfinite(fsq(xn))
+                if linesearch == "bt":
+                    alpha_c = 1e-4
+                    g0 = 0.5 * fn_ * fn_
+
+                    def cond_ls(s):
+                        i, lam, ok = s
+                        return (i < 16) & ~ok
+
+                    def body_ls(s):
+                        i, lam, ok = s
+                        g = 0.5 * fsq(x + lam * dx)
+                        ok = torch.isfinite(g) & (
+                            g <= g0 - 2.0 * alpha_c * lam * g0)
+                        return i + 1, torch.where(ok, lam, 0.5 * lam), ok
+
+                    # chunk 1: each backtrack is a residual, and most line
+                    # searches accept the full step
+                    _, lam, ok = while_loop(
+                        cond_ls, body_ls,
+                        (torch.zeros((), dtype=torch.int64, device=dev),
+                         torch.tensor(damping, dtype=x.dtype, device=dev),
+                         ~true), chunk=1)
+                    return x + lam * dx, ok
+                raise ValueError(f"unknown fused linesearch {linesearch!r}")
+
+            x = torch.where(bcm, bcv, x_shard)
+            F = res(x)
+            f0n = pnorm(F)
+            stop = torch.clamp(rtol * f0n, min=atol)
+
+            def cond(s):
+                it, x, F, fn_, ls_ok = s
+                return ((it < max_it) & (fn_ > stop) & torch.isfinite(fn_)
+                        & ls_ok)
+
+            def body(s):
+                it, x, F, fn_, _ = s
+                Av = self._jac_operator(x, cl, fcl, consts_, bcm)
+                if pc == "asm_lu":
+                    Minv = self._asm_lu_pc(x, cl, consts_)
+                elif pc == "asm_btlu":
+                    Minv = self._asm_btlu_pc(x, cl, consts_, factor_dtype)
+                elif pc == "schur":
+                    d = self._local_diagonal(x, cl, fcl, consts_, bcm)
+                    Minv = self._schur_pc_matfree(
+                        Av, d, m0, bc1, cheb_steps=cheb_steps,
+                        power_iters=power_iters, lmin_ratio=lmin_ratio)
+                else:
+                    d = self._local_diagonal(x, cl, fcl, consts_, bcm)
+                    dinv = torch.where(torch.abs(d) > 1e-300, 1.0 / d, 1.0)
+                    Minv = torch.abs(dinv) if ksp == "minres" else dinv
+                if ksp == "gmres":
+                    # deep restart: GMRES(30) stagnates on the RAS-
+                    # preconditioned indefinite LVPP saddle (the
+                    # reference's measurement); restart 120 recovers the
+                    # exact-direction trajectory
+                    dx = self._gmres(Av, -F, Minv, ksp_rtol, ksp_atol,
+                                     ksp_max_it, restart=gmres_restart)
+                    fn.krylov_its += self.last_krylov_its
+                else:
+                    solver = self._minres if ksp == "minres" else self._cg
+                    dx = solver(Av, -F, Minv, ksp_rtol, ksp_atol, ksp_max_it)
+                x, ls_ok = do_linesearch(x, dx, fn_)
+                F = res(x)
+                return it + 1, x, F, pnorm(F), ls_ok
+
+            state = (torch.zeros((), dtype=torch.int64, device=dev), x, F,
+                     f0n, torch.ones((), dtype=torch.bool, device=dev))
+            it, x, F, fn_, ls_ok = while_loop(cond, body, state, chunk=1)
+            return x, it, fn_, f0n, ls_ok
+
+        fn.krylov_its = None
+        return fn
+
+    def per_device_dof_memory(self) -> int:
+        """Bytes of dof-indexed state held per subdomain (owned blocks)."""
+        return self.Bsum * 8
+
+
+class DistributedLvppProblem:
+    """LVPPSolver-compatible facade over DistributedProblem: the LVPP
+    driver — alpha schedules, retry machine, observables — drives the
+    distributed path, as the reference's outer loops drive the
+    MPI-parallel SNESSolver (src/lvpp/problem.py:114-124).
+
+    Quacks like solve.nonlinear.NonlinearProblem for the driver: set_bc /
+    update / coeffs / consts / form / device / norm, plus
+    make_newton_solver() which LVPPSolver uses instead of the host
+    NewtonSolver. Coefficient values passed to update() must already be
+    distributed — dp.scatter_coeff, dp.scatter_cellq, or
+    dp.field_to_coeff (the distributed psi_k <- psi update)."""
+
+    def __init__(self, dp: DistributedProblem):
+        self.dp = dp
+        self.form = dp.form
+        self.space = dp.space
+        self.device = dp.device
+        self.coeffs: Dict = {}
+        self.facet_coeffs: Dict = {}
+        self.consts: Dict = dict(getattr(dp, "consts", {}) or {})
+
+    def update(self, coeffs=None, consts=None, facet_coeffs=None):
+        if coeffs:
+            self.coeffs.update(coeffs)
+        if consts:
+            self.consts.update(consts)
+        if facet_coeffs:
+            self.facet_coeffs.update(facet_coeffs)
+
+    def set_bc(self, x_shard):
+        dp = self.dp
+        return torch.where(dp.bc_mask, dp.bc_val,
+                           torch.as_tensor(x_shard, dtype=dp.dtype,
+                                           device=dp.device))
+
+    def norm(self, v_shard) -> torch.Tensor:
+        """Global 2-norm of a distributed vector (LVPPSolver's default
+        increment)."""
+        return torch.sqrt(self.dp._pdot(v_shard, v_shard))
+
+    def make_newton_solver(self, options=None, timer=None):
+        return DistributedNewtonSolver(self, options, timer)
+
+
+def _fused_options(opts):
+    """(ksp, pc) of the distributed Newton for a set of solver options:
+    the host direct default maps to restricted additive Schwarz with a
+    dense subdomain LU (asm_lu), the device block-tridiagonal direct to
+    RAS with a block-tridiagonal subdomain factor (asm_btlu); both under
+    right-preconditioned GMRES; any other pc is jacobi or schur, and a
+    direct or GMRES ksp becomes MINRES (there is no distributed direct
+    solve)."""
+    ksp = str(opts.opt("ksp_type"))
+    pc = str(opts.opt("pc_type", "jacobi"))
+    pc = {"lu": "asm_lu", "btlu": "asm_btlu"}.get(pc, pc)
+    if pc not in ("jacobi", "schur", "asm_lu", "asm_btlu"):
+        pc = "jacobi"
+    if pc in ("asm_lu", "asm_btlu"):
+        ksp = "gmres"
+    elif ksp in ("preonly", "gmres"):
+        ksp = "minres"
+    return ksp, pc
+
+
+class DistributedNewtonSolver:
+    """NewtonSolver-compatible driver over fused_lvpp_newton, reusing the
+    SNES reason codes of solve/newton.py so commit-on-convergence and the
+    fracture retry machine work unchanged on shards."""
+
+    def __init__(self, problem: DistributedLvppProblem, options=None,
+                 timer=None):
+        from ..core.config import SolverOptions
+        from ..core.logging import PhaseTimer
+        self.problem = problem
+        self.options = options if isinstance(options, SolverOptions) \
+            else SolverOptions(options or {})
+        self.timer = timer or PhaseTimer(problem.device)
+        self.krylov_its = []
+
+    def solve(self, x_shard):
+        from ..core.logging import rank_print
+        from ..core.reasons import ConvergedReason, NotConvergedError
+        from ..solve.newton import NewtonResult
+        opts = self.options
+        prob = self.problem
+        ksp, pc = _fused_options(opts)
+        fused = prob.dp.fused_lvpp_newton(
+            ksp=ksp, pc=pc,
+            linesearch=str(opts.opt("snes_linesearch_type")),
+            max_it=int(opts.opt("snes_max_it")),
+            ksp_max_it=int(opts.opt("ksp_max_it")),
+            schur_field0=opts.opt("pc_schur_field0", None),
+            cheb_steps=int(opts.opt("pc_schur_cheb_steps", 4)),
+            power_iters=int(opts.opt("pc_schur_power_iters", 8)),
+            lmin_ratio=float(opts.opt("pc_schur_lmin_ratio", 30.0)),
+            factor_dtype="f32" if str(opts.opt(
+                "pc_factor_dtype", "f64")) in ("f32", "single") else "f64",
+            gmres_restart=int(opts.opt("ksp_gmres_restart", 120)))
+        with self.timer.phase("newton_fused_distributed"):
+            x, it, fn, f0, ls_ok = fused(
+                x_shard, prob.coeffs, prob.consts, prob.facet_coeffs,
+                rtol=float(opts.opt("snes_rtol")),
+                atol=float(opts.opt("snes_atol")),
+                ksp_rtol=float(opts.opt("ksp_rtol")),
+                ksp_atol=float(opts.opt("ksp_atol")),
+                damping=float(opts.opt("snes_linesearch_damping")))
+            it, fn, f0, ls_ok = torch.stack(
+                [it.to(f0.dtype), fn, f0, ls_ok.to(f0.dtype)]).tolist()
+        if fused.krylov_its is not None:
+            self.krylov_its.append(fused.krylov_its)
+        it = int(it)
+        if not ls_ok:
+            reason = ConvergedReason.DIVERGED_LINE_SEARCH
+        elif not np.isfinite(fn):
+            reason = ConvergedReason.DIVERGED_FNORM_NAN
+        elif fn < float(opts.opt("snes_atol")):
+            reason = ConvergedReason.CONVERGED_FNORM_ABS
+        elif fn <= float(opts.opt("snes_rtol")) * f0:
+            reason = ConvergedReason.CONVERGED_FNORM_RELATIVE
+        else:
+            reason = ConvergedReason.DIVERGED_MAX_IT
+        if opts.opt("snes_converged_reason"):
+            rank_print(f"Nonlinear solve converged due to {reason.name} "
+                       f"iterations {it}" if reason.converged else
+                       f"Nonlinear solve did not converge due to "
+                       f"{reason.name} iterations {it}")
+        if (not reason.converged) and opts.opt("snes_error_if_not_converged"):
+            raise NotConvergedError(reason)
+        return NewtonResult(x, reason, it, fn, [f0, fn])

@@ -8,8 +8,8 @@ residual, jacobian_scipy, jacobian_action). As in the reference, it has no
 device direction: on one device the Newton step is the host LU direction
 (element matrices on the device, SuperLU on the host). The Krylov, btlu and
 fused-Newton directions of a composite problem belong to the distributed
-Signorini path (ROADMAP A12), and asking for a Krylov one raises
-NotImplementedError.
+Signorini path (parallel/dofpart.DistributedProblem, ROADMAP A12), and
+asking this class for a Krylov one raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -137,5 +137,5 @@ class CompositeProblem:
             "a device Krylov direction of a CompositeProblem: the composite "
             "(Signorini) problem solves with the host LU direction "
             "(ksp_type='preonly', pc_type='lu') on one device; its Krylov "
-            "direction belongs to the distributed path, not ported yet "
-            "(ROADMAP A12)")
+            "direction belongs to the distributed path "
+            "(parallel/dofpart.DistributedProblem, ROADMAP A12)")

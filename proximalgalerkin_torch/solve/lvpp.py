@@ -158,7 +158,7 @@ class LVPPSolver:
                  timer: Optional[PhaseTimer] = None):
         self.problem = problem
         # distributed problems (parallel.dofpart.DistributedLvppProblem)
-        # manufacture their own fused shard_map Newton; everything else
+        # manufacture their own distributed Newton; everything else
         # in this driver (alpha schedules, retry machine, observables,
         # checkpoints) is solver-agnostic
         make = getattr(problem, "make_newton_solver", None)
@@ -253,8 +253,10 @@ class LVPPSolver:
                 continue
 
             x = res.x
+            # a distributed problem's norm reduces over every subdomain
+            norm = getattr(prob, "norm", torch.linalg.norm)
             inc = (float(self.increment(x, x_k)) if self.increment is not None
-                   else float(torch.linalg.norm(x - x_k)))
+                   else float(norm(x - x_k)))
             if self.verbose:
                 rank_print(f"Newton steps: {res.iterations}   "
                            f"Converged: {int(res.reason)}")

@@ -12,9 +12,11 @@ first Newton direction (alpha = 1, x0 = 0), and dir0_N the same with no
 f64 refinement pass (ksp_refine_max 0: the f32 inner solve alone);
 sig2d_D the Signorini half-disk at res 0.04 pressed by disp = -D (D one of
 0.10, 0.15, 0.20), sig3d the half-sphere at res 0.12, sig3d_006 the
-half-sphere at res 0.06 cut to its first 5 LVPP steps, and compare_all
-the five solvers on the disk at res 0.1, tol 1e-4 (RESULTS.md:160-162). It
-runs the JAX package on the CPU, as the repository's tests do.
+half-sphere at res 0.06 cut to its first 5 LVPP steps, compare_all
+the five solvers on the disk at res 0.1, tol 1e-4 (RESULTS.md:160-162),
+and halo_N the halo-exchange FD obstacle fd_obstacle_solve_sharded(N) on
+8 virtual devices (phase 14). It runs the JAX package on the CPU, as the
+repository's tests do.
 """
 
 import json
@@ -22,8 +24,9 @@ import os
 import sys
 import time
 
-os.environ.setdefault("XLA_FLAGS",
-                      "--xla_force_host_platform_device_count=1")
+os.environ.setdefault(
+    "XLA_FLAGS", "--xla_force_host_platform_device_count="
+    + ("8" if sys.argv[1:2] and sys.argv[1].startswith("halo_") else "1"))
 
 import jax  # noqa: E402
 
@@ -41,7 +44,7 @@ MATFREE = {"ksp_type": "minres", "pc_type": "jacobi", "mat_type": "matfree",
 CASES = ("eik_lu", "eik_schur", "eik_matfree", "eik_star", "ball_0.45",
          "ball_0.3", "ball_0.15", "ma", "ma_h", "gcmg_16", "gcmg_24",
          "gcmg_48", "dir_N", "dir0_N", "sig2d_0.10", "sig2d_0.15",
-         "sig2d_0.20", "sig3d", "sig3d_006", "compare_all")
+         "sig2d_0.20", "sig3d", "sig3d_006", "compare_all", "halo_N")
 
 
 def eikonal(r):
@@ -137,6 +140,16 @@ def run(case: str) -> dict:
                 "max_diff_to_vi": {k: float(np.abs(np.asarray(v) - ref).max())
                                    for k, v in r.solutions.items()
                                    if np.shape(v) == ref.shape}}
+    if case.startswith("halo_"):
+        from proximalgalerkin_tpu.parallel.halo import \
+            fd_obstacle_solve_sharded
+        assert len(jax.devices()) == 8
+        u, phi, outer, newton = fd_obstacle_solve_sharded(
+            int(case.split("_")[1]))
+        u = np.asarray(u)
+        return {"outer": outer, "newton": newton,
+                "min_u_minus_phi": float(np.min(u - phi)),
+                "umax": float(u.max())}
     raise SystemExit(f"unknown case {case!r}; one of {CASES}")
 
 

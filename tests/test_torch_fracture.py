@@ -7,7 +7,9 @@ a continuation the reference checkpoints at load step 4, resumed by the
 port; the residual, element matrices and Jacobian diagonal of the form
 (the energy's gradient by torch.func.grad inside the residual, the
 regularized jacobian_fn) on a handful of cells; moving Dirichlet data;
-and the fracture CLI."""
+and the fracture CLI, on one device and on 8 subdomains (the
+distributed continuation's parity cases are in
+test_torch_fracture_distributed.py)."""
 
 import numpy as np
 import pytest
@@ -196,7 +198,14 @@ def test_cli_fracture(capsys):
     main(argv + ["--device", "cpu"])
     last = capsys.readouterr().out.strip().splitlines()[-1]
     assert last == ref_last and last.startswith("steps 3 ")
-    with pytest.raises(SystemExit, match="A12"):
-        main(["fracture", "--n-devices", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A12"):
-        mod.solve_fracture(n_devices=2, device="cpu")
+    # the dof-partitioned path over 8 subdomains (the reference on its 8
+    # virtual devices) from the CLI, with no load step: the distributed
+    # problem is built, its state gathered back and printed; the
+    # continuation's parity is test_torch_fracture_distributed.py's
+    argv = ["fracture", "--res", "0.4", "--num-load-steps", "1",
+            "--n-devices", "8"]
+    ref_main(argv)
+    ref_last = capsys.readouterr().out.strip().splitlines()[-1]
+    main(argv + ["--device", "cpu"])
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    assert last == ref_last == "steps 0 broken=False"

@@ -1,6 +1,7 @@
 """Tests of the port's CUDA kernels; they need a card and skip without
 one. This file imports no jax, so on a machine with a card and without
-jax it runs alone, without the suite's conftest:
+jax it runs alone, without the suite's conftest (tests/test_torch_multihost.py
+holds the distributed layer's multi-process runs on the CPU):
 
     python -m pytest --noconftest -q -p no:cacheprovider tests/test_torch_gpu.py
 """
@@ -14,10 +15,12 @@ from proximalgalerkin_torch.models.obstacle_p1 import P1ObstacleSolver
 from proximalgalerkin_torch.ops import dia_cg, mgfused
 from proximalgalerkin_torch.ops.dia_spmv import dia_spmv, dia_spmv_reference
 
-from chip_smoke import (BTLU_CASES, CONTACT_CASES, MODELS, MULTIPHASE_CASES,
+from chip_smoke import (BTLU_CASES, CONTACT_CASES, DIST_CASES,
+                        FRACTURE_DIST_OPTS, MODELS, MULTIPHASE_CASES,
                         SCHUR_CASES, btlu_case, contact_case, dia_cg_system,
-                        field_rtol, grids_on, model_case, multiphase_case,
-                        p1_operator, rel_field, residual_ratio, schur_case)
+                        dist_case, field_rtol, grids_on, model_case,
+                        multiphase_case, p1_operator, rel_field,
+                        residual_ratio, schur_case)
 
 pytestmark = pytest.mark.gpu
 
@@ -468,3 +471,54 @@ def test_device_loops_read_the_host_once_per_chunk(cuda):
         krylov.cg = real
     assert bool(ok) and int(it) == len(counted) > 1
     assert reads == sum(counted) + int(it) + 1
+
+
+@pytest.mark.parametrize("name", list(DIST_CASES))
+def test_distributed_on_card_matches_cpu(cuda, name):
+    """Phase 14 (i)'s cases on the card and on the CPU, 8 subdomains:
+    dofpart's residual and Jacobian action (disk res 0.2 P1, 13x11 P2),
+    the 3-step distributed LVPP on the disk res 0.25, the halo-exchange
+    FD obstacle at N = 33: counts equal, fields within 1e-10 relative."""
+    c_card, f_card = dist_case(name, cuda)
+    c_cpu, f_cpu = dist_case(name, torch.device("cpu"))
+    assert c_card == c_cpu
+    for k in f_card:
+        assert rel_field(f_card[k], f_cpu[k]) <= DIST_CASES[name], k
+
+
+def test_distributed_fracture_on_card_matches_cpu(cuda):
+    """The distributed fracture continuation on 8 subdomains (res 0.4,
+    one load step, MINRES on the matrix-free action; its Jacobian actions
+    replayed as CUDA graphs on the card): per-step counts equal to the
+    CPU's, u and c within 1e-10."""
+    from proximalgalerkin_torch.models.fracture import solve_fracture
+    kw = dict(max_res=0.4, Tmax=0.3, num_load_steps=2, n_devices=8,
+              solver_options=FRACTURE_DIST_OPTS, verbose=False)
+    rc = solve_fracture(device=cuda, **kw)
+    rh = solve_fracture(device="cpu", **kw)
+    assert (rc.newton_per_step, rc.lvpp_per_step, rc.retries_per_step) == \
+        (rh.newton_per_step, rh.lvpp_per_step, rh.retries_per_step)
+    assert np.abs(rc.u - rh.u).max() <= 1e-10
+    assert np.abs(rc.c - rh.c).max() <= 1e-10
+
+
+def test_distributed_graph_replay_is_the_eager_action(cuda):
+    """A Jacobian action replayed as a CUDA graph gives the eager action's
+    values on the card."""
+    from proximalgalerkin_torch.mesh.unstructured import create_disk_mesh
+    from chip_smoke import _dist_obstacle
+    prob, dp = _dist_obstacle(cuda, create_disk_mesh(0.2))
+    N = prob.space.num_dofs
+    rng = np.random.default_rng(0)
+    x, v = dp.scatter(rng.standard_normal(N)), dp.scatter(
+        rng.standard_normal(N))
+    cv = dp._prep_coeffs({"phi": dp.scatter_cellq(
+        prob.problem.coeffs["phi"])} | {
+        k: dp.scatter_coeff(k, rng.standard_normal(
+            prob.space.spaces["u"].num_dofs)) for k in ("psi_k", "u_k")})
+    consts = {"alpha": torch.tensor(3.0, dtype=torch.float64, device=cuda)}
+    graphed = dp._jac_operator(x, cv, {}, consts, dp.bc_mask)
+    assert hasattr(graphed, "graph")
+    eager = dp._jac_action(x, cv, {}, consts, dp.bc_mask)
+    assert _rel(graphed(v), eager(v)) <= 1e-14
+    assert _rel(graphed(2.0 * v), eager(2.0 * v)) <= 1e-14

@@ -292,5 +292,15 @@ def test_cli_obstacle(tmp_path, capsys):
     (csv_file,) = tmp_path.glob("example_polyorder1_*.csv")
     header = csv_file.read_text().splitlines()[0]
     assert "Step size rule" in header and "Energy" in header
-    with pytest.raises(SystemExit, match="A12"):
-        main(["obstacle", "--n-devices", "2", "--device", "cpu"])
+    # the dof-partitioned path over 8 subdomains: the reference CLI's last
+    # line (the reference on its 8 virtual devices)
+    from proximalgalerkin_tpu.cli import main as ref_main
+    argv = ["obstacle", "--disk-res", "0.3", "--alpha-scheme",
+            "double_exponential", "--alpha-max", "1e2", "--max-iter", "3",
+            "--output-dir", str(tmp_path), "--n-devices", "8"]
+    ref_main(argv)
+    ref_last = capsys.readouterr().out.strip().splitlines()[-1]
+    main(argv + ["--device", "cpu"])
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    assert last == ref_last
+    assert last.startswith("[distributed x8] LVPP iterations: 3 ")
