@@ -15,11 +15,15 @@
                                        # distributed obstacle's 4 LVPP
                                        # steps, the 29-step distributed
                                        # fracture, the halo FD at
-                                       # N = 1025 (SIZES)
+                                       # N = 1025, the three btlu
+                                       # device records (SIZES)
     python3 chip_smoke.py --record KEY # one MULTIPHASE_RECORDS run, as a
-                                       # JSON line, or the eikonal ball
-                                       # (eikonal_ball): the children of
-                                       # phases 11 (iv) and 12 (ii)
+                                       # JSON line, the eikonal ball
+                                       # (eikonal_ball) or the btlu
+                                       # records' depth cuts
+                                       # (btlu_cuts): the children of
+                                       # phases 11 (iv), 11 (vi) and
+                                       # 12 (ii)
     python3 chip_smoke.py --cpu-cases GROUP OUT
                                        # the CPU halves of phase GROUP's
                                        # (i) checks, pickled to OUT (a
@@ -51,9 +55,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    host read per chunk), and their times;
 6. the main path, mixed precision with pc="mg": a 32^2 solve on the card
    held against the same solve on the CPU, then the 1024^2 LVPP obstacle
-   solve (2,101,250 dofs), checked for convergence, feasibility and
-   kernel launches, with its time per CG iteration and the device's idle
-   share over outer step 1;
+   solve (2,101,250 dofs) after the bench's warm-up Newton solve
+   (cli.warmup_newton), checked for convergence, feasibility, kernel
+   launches, no chunk graph captured in the timed solve, and its outer,
+   Newton and CG counts and the hash of u (MAIN_PATH_PINS), with its time
+   per CG iteration and the device's idle share over outer step 1;
 7. the main path with pc="jacobi": the same two solves with the same
    readings, the 1024^2 solution held against the mg one, and
    solve_fused() at 32^2;
@@ -74,10 +80,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    gradient constraint, fracture): (i) each at the smallest case of its
    CPU parity test on the card and on the CPU (counts equal, fields
    within 1e-10 relative; thermoforming 1e-7, FIELD_RTOL), then, after
-   phase 11 (i) and (iv), (ii) each at its record size (RESULTS.md:159-171; fracture cut to its first
+   phase 11 (i) and (iv), (ii) each at its record size
+   (RESULTS.md:159-171; thermoforming cut to its first
+   THERMOFORMING_HELD_STEPS LVPP steps, fracture to its first
    FRACTURE_LOAD_STEPS load steps): its counts beside the JAX
    package's CPU counts pinned here (REFERENCE_COUNTS; they must be
-   equal, thermoforming's over THERMOFORMING_HELD_STEPS), the reference
+   equal over the steps run), the reference
    test's physical checks, its seconds, PhaseTimer report and peak
    device memory, and zero launches of the port's CUDA kernels;
 11. the block-tridiagonal direct direction (la/blocktri.py,
@@ -87,11 +95,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    btlu Thomas f32, cyclic reduction, streamed and lagged f64 factor /
    f32 apply; multiphase N = 10, two steps, with LU and with the fused
    lagged btlu): counts equal, fields within 1e-10 relative; (ii) phase
-   9's 160^2 obstacle with btlu, f64 and f32 factor, held to the JAX
-   package's CPU outcome (BTLU_OBSTACLE: the block elimination breaks
-   down at outer step 6-7 in both packages) and to (a)'s Newton counts
-   before it; (iii) gradient constraint 48^2 P2 and eigenvalue 20^2 P3
-   with btlu (counts equal to the pinned LU ones); (iv) multiphase at
+   9's 160^2 obstacle with btlu, f64 and f32 factor, held to (a)'s LU
+   outcome (the JAX package's CPU runs break down at outer step 6-7,
+   its equilibration scaling latent rows by diagonals near underflow;
+   la/blocktri._equilibrate); (iii) gradient constraint 48^2 P2 and
+   eigenvalue 20^2 P3 with btlu (counts equal to the pinned LU ones); (iv) multiphase at
    24^2, dt 1e-4, the first of the record's 5 steps, default LU (host
    SuperLU, in a child process on the same card beside phases 10 (i),
    11 (i) and 12 (i), which time nothing and whose CPU halves run in
@@ -104,6 +112,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    seconds, factor/solve shares, refactors, PhaseTimer report and peak
    device memory, and zero launches of the port's CUDA kernels; then the
    time of one factor and one apply at the block shapes of (ii) and (v);
+   (vi) depth cuts of the JAX package's all-device btlu records
+   (BTLU_RECORDS), in a child process beside the (i) checks as (iv):
+   example 01's disk at res 0.0085 (101,000 dofs), its first LVPP step
+   (Newton [5]), and the eigenvalue constraints at 100^2 P3 (362,404
+   dofs), its first Newton step with the streamed factor, each with its
+   seconds, shares, refactors, blocking and peak device memory;
 12. the block-Schur preconditioners (la/schur.py, la/gmg.py,
    pc_type='schur'/'schur_mg', mixed precision under them) and the
    eikonal and Monge–Ampère models, as torch ops on the card: (i) the
@@ -842,11 +856,25 @@ class InnerTimer:
         setattr(self._module, self.name, self._real)
 
 
+# The 1024^2 solves' outer, Newton and CG counts and the SHA-256 prefix of
+# u, as every H100 run of these kernels has read them (PERF.md)
+MAIN_PATH_PINS = {"mg": (25, 45, 29467, "466bb3544c74f91e"),
+                  "jacobi": (26, 46, 176066, "bdcf4d10db6b4971")}
+
+
+def chunk_graphs() -> int:
+    """The CUDA graphs of the MG-PCG and DIA-CG chunks captured so far."""
+    from proximalgalerkin_torch.ops import dia_cg, mgfused
+    return sum(len(ws.graphs) for mod in (mgfused, dia_cg)
+               for ws in mod._workspaces.values())
+
+
 def drive_main(dev, pc: str, n: int = 1024, inner=None):
     """The 32^2 card-vs-CPU check, then the n^2 solve with pc; returns
     (the solver, its result, the launch counts of the n^2 solve). inner:
     a context entered around the n^2 solve alone."""
     import contextlib
+    from proximalgalerkin_torch import cli
     from proximalgalerkin_torch.mesh import rectangle_mesh
     from proximalgalerkin_torch.models.obstacle_p1 import P1ObstacleSolver
     kw = dict(alpha_cap=1e2, outer_tol=1e-8, mixed_precision=True, pc=pc)
@@ -870,6 +898,12 @@ def drive_main(dev, pc: str, n: int = 1024, inner=None):
     solver = P1ObstacleSolver(mesh, device=dev, **kw)
     torch.cuda.synchronize()
     setup = time.time() - t0
+    # the bench's warm-up (cli.run_bench): the timed solve captures no
+    # chunk graph
+    t0 = time.time()
+    cli.warmup_newton(solver)
+    warmup = time.time() - t0
+    graphs = chunk_graphs()
     reset_counters()
     t0 = time.time()
     with inner or contextlib.nullcontext():
@@ -878,12 +912,21 @@ def drive_main(dev, pc: str, n: int = 1024, inner=None):
     elapsed = time.time() - t0
     counts = read_counters()
     feas = float((res.u - solver.phi.cpu().numpy()).min())
-    print(f"{n}^2 pc={pc} dofs {2 * solver.N} setup {setup:.2f} s solve "
-          f"{elapsed:.2f} s outer {res.outer_iterations} newton "
-          f"{res.newton_its} cg {res.cg_its_total} feasibility {feas:.3e} "
-          f"launches {counts}")
-    print(f"newton_per_outer {res.newton_per_outer}; SHA-256 of u "
-          f"{hashlib.sha256(res.u.tobytes()).hexdigest()[:16]}", flush=True)
+    sha = hashlib.sha256(res.u.tobytes()).hexdigest()[:16]
+    print(f"{n}^2 pc={pc} dofs {2 * solver.N} setup {setup:.2f} s warm-up "
+          f"{warmup:.2f} s solve {elapsed:.2f} s outer "
+          f"{res.outer_iterations} newton {res.newton_its} cg "
+          f"{res.cg_its_total} feasibility {feas:.3e} launches {counts}; "
+          f"chunk graphs {graphs} before the solve, {chunk_graphs()} after")
+    print(f"newton_per_outer {res.newton_per_outer}; SHA-256 of u {sha}",
+          flush=True)
+    check(chunk_graphs() == graphs and graphs > 0,
+          "the timed solve captures no chunk graph")
+    if n == 1024:
+        got = (res.outer_iterations, res.newton_its, res.cg_its_total, sha)
+        check(got == MAIN_PATH_PINS[pc],
+              f"{n}^2 pc={pc} outer, Newton, CG and u {got} equal "
+              f"{MAIN_PATH_PINS[pc]}")
     check(res.converged, f"{n}^2 converged")
     check(res.u.shape == (solver.N,) and bool(np.isfinite(res.u).all()),
           "u finite, of shape (N,)")
@@ -1278,12 +1321,12 @@ def model_record(name: str, dev, timer):
                   "0.5 + 1e-8], hi > 0.45",
                   lo >= -0.5 - 1e-8 and 0.45 < hi <= 0.5 + 1e-8)], [])
     if name == "thermoforming":
-        r = thermoforming.solve_thermoforming(M=48, verbose=False,
-                                              device=dev, timer=timer)
+        r = thermoforming.solve_thermoforming(
+            M=48, max_lvpp_iterations=THERMOFORMING_HELD_STEPS,
+            verbose=False, device=dev, timer=timer)
         viol = float((r.u - r.mould).max())
         return ({"lvpp": r.lvpp_iterations, "newton": r.newton_iterations},
-                [("converged", r.converged),
-                 (f"max(u - mould) < 0.02 ({viol:.3e})", viol < 0.02),
+                [(f"max(u - mould) < 0.02 ({viol:.3e})", viol < 0.02),
                  (f"0 < T < 25 ([{r.T.min():.4f}, {r.T.max():.4f}])",
                   0.0 < r.T.min() and r.T.max() < 25.0)],
                 [f"  total Newton {r.total_newton}"])
@@ -1334,8 +1377,9 @@ def model_record(name: str, dev, timer):
 
 # Thermoforming at M = 48 walks a tail that residuals differing in their
 # 12th digit change once alpha reaches its cap 2^14 at LVPP step 11
-# (ROADMAP section C): its Newton counts are held to the reference's over
-# the 10 solves before the cap
+# (ROADMAP section C; 44 to over 100 LVPP steps on the card): the record
+# runs its 10 LVPP steps before the cap, each Newton count held to the
+# reference's; `--sizes models` runs thermoforming whole at M = 150
 THERMOFORMING_HELD_STEPS = 10
 # Fracture's record runs its first 9 of 29 load steps (their loads equal
 # the record's bit for bit; 208 of its 908 Newton steps), so that the
@@ -1346,14 +1390,15 @@ FRACTURE_LOAD_STEPS = 9
 
 def counts_agree(name: str, counts: dict) -> tuple:
     """(agree, what was compared) of a record run's counts and the pinned
-    ones: equal, except thermoforming's, whose Newton counts are compared
-    over its first THERMOFORMING_HELD_STEPS Newton solves, and fracture's,
-    compared over its first FRACTURE_LOAD_STEPS load steps."""
+    ones: equal, except thermoforming's, which runs its first
+    THERMOFORMING_HELD_STEPS LVPP steps, and fracture's, its first
+    FRACTURE_LOAD_STEPS load steps: their counts are compared over
+    those."""
     ref = REFERENCE_COUNTS[name]
     if name == "thermoforming":
         k = THERMOFORMING_HELD_STEPS
-        return (counts["newton"][:k] == ref["newton"][:k],
-                f"the first {k} Newton counts")
+        return (counts == {"lvpp": k, "newton": ref["newton"][:k]},
+                f"the {k} LVPP steps' Newton counts")
     if name == "fracture":
         k = FRACTURE_LOAD_STEPS
         return ({key: v[:k] if isinstance(v, list) else v
@@ -1444,20 +1489,6 @@ REFERENCE_COUNTS["multiphase_24"] = {"newton": [75, 45, 46, 44, 44],
                                      "lvpp": [20, 20, 20, 20, 20]}
 REFERENCE_COUNTS["multiphase_50"] = {"newton": [77, 45, 32, 34, 31],
                                      "lvpp": [20, 20, 14, 15, 14]}
-# Phase 9's 160^2 obstacle with btlu (ksp_rtol 1e-9): in the JAX
-# package's CPU runs neither factor dtype converges — the unpivoted block
-# elimination of the saddle breaks down once alpha grows (f64: a first
-# apply with relative residual 2e14 at alpha 85, outer step 7; f32 one
-# outer step earlier) and the Newton solve ends in DIVERGED_FNORM_NAN.
-# The card is held to that outcome; the counts before it equal (a)'s.
-# tests/test_torch_blocktri.py holds the two packages' outcomes equal at
-# 40^2 on the CPU (there the f32 factor breaks down, the f64 converges).
-BTLU_OBSTACLE = {"f64": {"lvpp": 6, "newton_steps": [5, 4, 3, 3, 1, 1],
-                         "converged": False},
-                 "f32": {"lvpp": 5, "newton_steps": [5, 4, 3, 3, 1],
-                         "converged": False}}
-
-
 def btlu_case(name: str, dev):
     """The gradient-constraint 12^2 P2 LVPP of tests/test_torch_blocktri.py
     with the btlu option set `name` (or "lu", the default direction) on
@@ -1562,13 +1593,17 @@ def phase_btlu(dev, lvpp_a, multiphase_24=None):
               flush=True)
         check(all(v == 0 for v in launches.values()),
               f"(ii) {fdt} launches none of the port's kernels")
+        # the JAX package's CPU runs break down here (f64 at outer step
+        # 7, f32 one step earlier): its equilibration scales latent rows
+        # by diagonals near underflow (la/blocktri._equilibrate); the
+        # port's btlu takes (a)'s LU outcome, which
+        # tests/test_torch_blocktri.py holds at 40^2 against the JAX
+        # package's f64 btlu run
         got = {"lvpp": res.iterations, "newton_steps": res.newton_steps,
                "converged": res.converged}
-        check(got == BTLU_OBSTACLE[fdt],
-              f"(ii) {fdt} outcome {got} equals the JAX package's "
-              f"{BTLU_OBSTACLE[fdt]}")
-        check(res.newton_steps == res_a.newton_steps[:res.iterations],
-              f"(ii) {fdt} Newton counts equal (a)'s up to the breakdown")
+        want = {"lvpp": res_a.iterations, "newton_steps": res_a.newton_steps,
+                "converged": True}
+        check(got == want, f"(ii) {fdt} outcome {got} equals (a)'s {want}")
 
     # (iii) the two P2/P3 records of phase 10 with btlu
     from proximalgalerkin_torch.models import (eigenvalue_constraints,
@@ -2878,10 +2913,11 @@ class CpuCases:
 
 
 class RecordProcess:
-    """MULTIPHASE_RECORDS[key], or the eikonal ball (key "eikonal_ball"),
-    in a child process on the same card (`chip_smoke.py --record KEY`).
-    The smoke run starts one for phase 11 (iv), 75 host SuperLU factors,
-    and one for phase 12 (ii)'s ball, host SuperLU too, beside the
+    """MULTIPHASE_RECORDS[key], the eikonal ball (key "eikonal_ball") or
+    the btlu records' depth cuts (key "btlu_cuts") in a child process on
+    the same card (`chip_smoke.py --record KEY`). The smoke run starts one
+    for phase 11 (iv), 75 host SuperLU factors, one for phase 11 (vi) and
+    one for phase 12 (ii)'s ball, host SuperLU too, beside the
     card-against-CPU checks of phases 10 (i)-14 (i), which time nothing,
     and waits for them before any other timed run. result() waits and
     returns the readings of the child's last line, with the lines it
@@ -2989,7 +3025,8 @@ MATFREE = {"ksp_type": "minres", "pc_type": "jacobi", "mat_type": "matfree",
 MATFREE_NEWTON_5 = [2, 2, 3, 3, 2]
 SIZES = ("lvpp", "fd", "models", "multiphase", "first_steps",
          "gradient_lvpp", "eikonal_matfree", "signorini_width",
-         "distributed_224", "fracture_distributed", "halo_fd_1025")
+         "distributed_224", "fracture_distributed", "halo_fd_1025",
+         "unstructured_101k", "eigenvalue_100_streamed", "gradient_200_btlu")
 
 
 def sizes(names=SIZES):
@@ -3012,9 +3049,14 @@ def sizes(names=SIZES):
     distributed obstacle's 4 LVPP steps (distributed_224), the
     distributed fracture's 29 load steps (fracture_distributed) and
     fd_obstacle_solve_sharded(1025) on 8 strips (halo_fd_1025), of
-    phase 14 (ii)."""
+    phase 14 (ii); the JAX package's three all-device btlu records, each
+    whole (BTLU_RECORDS: unstructured_101k, eigenvalue_100_streamed,
+    gradient_200_btlu)."""
     phase_card()
     dev = torch.device("cuda", 0)
+    for name in BTLU_RECORDS:
+        if name in names:
+            btlu_record(dev, name)
     if "lvpp" in names:
         for n in (224, 160):
             t0 = time.perf_counter()
@@ -3126,6 +3168,148 @@ def sizes_models(dev):
               flush=True)
 
 
+# The JAX package's three all-device btlu records (scripts/tpu_records.py,
+# their counts logged in records/), each run whole by `--sizes NAME`:
+# (title, its run(dev, timer, cut) -> (counts, converged, extra checks),
+# the pinned counts). The option sets are the record script's
+# device_direct(): btlu with its f32 factor and ksp_rtol 1e-9, the disk
+# with the f64 factor, the recursive block-Schur inverse
+# (pc_factor_blockinv 'schur'), lag 1 and ksp_rtol 1e-12; the eigenvalue
+# record's factor is streamed because its dense factors exceed
+# LineBlocking.max_bytes, the record script's 11e9. `cut` runs the depth
+# cut of the default run: the disk's first LVPP step, the eigenvalue's
+# first Newton step.
+DEVICE_DIRECT = {"ksp_type": "preonly", "pc_type": "btlu", "ksp_rtol": 1e-9}
+
+
+def _disk_record(dev, timer, cut):
+    from proximalgalerkin_torch.mesh.unstructured import create_disk_mesh
+    from proximalgalerkin_torch.models.obstacle import setup_obstacle_problem
+    prob = setup_obstacle_problem(
+        create_disk_mesh(res=0.0085), polynomial_order=1, tol_exit=1e-8,
+        alpha_max=1e4, maximum_number_of_outer_loop_iterations=1 if cut
+        else 60, verbose=True, device=dev, solver_options={
+            **DEVICE_DIRECT, "pc_factor_dtype": "f64",
+            "pc_factor_blockinv": "schur", "pc_factor_lag": 1,
+            "ksp_rtol": 1e-12})
+    prob.solver.timer = prob.solver.newton.timer = timer
+    r = prob.solve()
+    return ({"lvpp": r.iterations, "newton": r.newton_steps}, r.converged,
+            [(f"dofs {prob.space.num_dofs} == 101000",
+              prob.space.num_dofs == 101000)])
+
+
+def _eigenvalue_record(dev, timer, cut):
+    from proximalgalerkin_torch.models.eigenvalue_constraints import \
+        solve_eigenvalue_constraints
+    r = solve_eigenvalue_constraints(
+        N=100, degree=3, verbose=True, device=dev, timer=timer,
+        **(dict(max_lvpp=1, nfail_max=0) if cut else {}),
+        solver_options={**DEVICE_DIRECT,
+                        **({"snes_max_it": 1} if cut else {})})
+    lo, hi = r.eigenvalue_range()
+    counts = {"lvpp": r.lvpp.iterations,
+              "newton": int(sum(r.lvpp.newton_steps))}
+    if cut:
+        # the capped step is a failed LVPP step, so it is counted by its
+        # directions, not in newton_steps
+        return ({"lvpp": r.lvpp.iterations,
+                 "newton": timer.counts.get("linear_solve_bt", 0)}, True,
+                [(f"dofs {4 * r.q1.size} == 362404",
+                  4 * r.q1.size == 362404)])
+    return counts, r.lvpp.converged, [
+        (f"lambda in [{lo:.12f}, {hi:.12f}], within 1e-6 of [-0.5, 0.5]",
+         abs(lo + 0.5) <= 1e-6 and abs(hi - 0.5) <= 1e-6)]
+
+
+def _gradient_record(dev, timer, cut):
+    from proximalgalerkin_torch.models.gradient_constraint import \
+        solve_gradient_constraint
+    _, r = solve_gradient_constraint(
+        verbose=True, device=dev, timer=timer, solver_options=DEVICE_DIRECT,
+        **GRADIENT_200)
+    return ({"lvpp": r.iterations, "newton": int(sum(r.newton_steps))},
+            r.converged, [(f"last increment {r.increments[-1]:.3e} < 1e-8",
+                           r.increments[-1] < 1e-8)])
+
+
+BTLU_RECORDS = {
+    # records/rec_obstacle_unstructured_dev.log (scripts/tpu_records.py
+    # :254-294): 101,000 dofs, the record's blocking nb 272 x bs 562 (the
+    # JAX package's today, as the port's: 273 x 566)
+    "unstructured_101k": (
+        "example 01's disk at res 0.0085, btlu f64 factor, lag 1, ksp_rtol "
+        "1e-12, alpha_max 1e4, tol 1e-8", _disk_record,
+        {"lvpp": 13, "newton": [5, 4, 3, 2] + [1] * 9}),
+    # records/eigenvalue_btlu_run.log (:175-193): 362,404 dofs
+    "eigenvalue_100_streamed": (
+        "eigenvalue constraints 100^2 P3, streamed btlu f32 factor",
+        _eigenvalue_record, {"lvpp": 7, "newton": 16}),
+    # records/rec_gradient_200_btlu.log (:138-146): 241,603 dofs, last
+    # increment 6.5e-9
+    "gradient_200_btlu": (
+        "gradient constraint 200^2 P2, btlu f32 factor",
+        _gradient_record, {"lvpp": 17, "newton": 45}),
+}
+# the default run's depth cuts of the disk and the eigenvalue record
+BTLU_CUTS = {"unstructured_101k": {"lvpp": 1, "newton": [5]},
+             "eigenvalue_100_streamed": {"lvpp": 0, "newton": 1}}
+
+class FactorTap:
+    """While open, records the (nb, bs, layout) of every block-tridiagonal
+    factorization chosen (la/blocktri.factorization)."""
+
+    def __enter__(self):
+        from proximalgalerkin_torch.la import blocktri
+        self.seen, self._real = set(), blocktri.factorization
+        tap = self
+
+        def factorization(blocking, dtype, *args, **kwargs):
+            cls = tap._real(blocking, dtype, *args, **kwargs)
+            tap.seen.add((blocking.nb, blocking.bs, dtype,
+                          "streamed" if "Streamed" in cls.__name__
+                          else "dense"))
+            return cls
+
+        blocktri.factorization = factorization
+        return self
+
+    def __exit__(self, *exc):
+        from proximalgalerkin_torch.la import blocktri
+        blocktri.factorization = self._real
+
+
+def btlu_record(dev, name: str, cut: bool = False) -> dict:
+    """BTLU_RECORDS[name] on dev, whole or at its BTLU_CUTS depth: prints
+    its seconds, counts against the pinned ones, shares, refactors, peak
+    device memory and blocking, and checks them; returns the readings."""
+    title, run, pinned = BTLU_RECORDS[name]
+    if cut:
+        title, pinned = f"{title}, depth cut", BTLU_CUTS[name]
+    with FactorTap() as tap:
+        (counts, converged, extra), secs, timer, launches, peak = \
+            timed_run(dev, lambda tm: run(dev, tm, cut))
+    print(f"{name} ({title}): {secs:.2f} s, counts {counts}; pinned "
+          f"{pinned}; converged {converged}; refactors "
+          f"{timer.counts.get('bt_factor', 0)}; blocking (nb, bs, factor "
+          f"dtype, layout) {sorted(tap.seen)}; peak device memory "
+          f"{peak:.2f} GiB; launches {launches}", flush=True)
+    print(f"  shares: {shares(timer, secs)}; PhaseTimer:\n    "
+          + timer.report().replace("\n", "\n    "), flush=True)
+    for what, ok in extra:
+        print(f"  {what}: {ok}", flush=True)
+        check(ok, f"{name}: {what}")
+    check(counts == pinned, f"{name} counts {counts} equal {pinned}")
+    # a depth cut ends before its LVPP loop converges
+    check(converged or cut, f"{name} converged")
+    check(len(tap.seen) > 0, f"{name} ran the btlu direction")
+    check(all(v == 0 for v in launches.values()),
+          f"{name} launches none of the port's kernels")
+    return {"name": name, "secs": secs, "counts": counts,
+            "refactors": timer.counts.get("bt_factor", 0),
+            "blocking": sorted(tap.seen), "peak_gib": peak}
+
+
 def stamp(what: str):
     print(f"-- {what} done, {time.perf_counter() - T_START:.1f} s into "
           "the run", flush=True)
@@ -3153,6 +3337,10 @@ def main():
         if sys.argv[2] == "eikonal_ball":
             ball_record(dev)              # a failed check raises
             print(json.dumps({"key": "eikonal_ball"}), flush=True)
+        elif sys.argv[2] == "btlu_cuts":
+            print(json.dumps({"key": "btlu_cuts", "runs": [
+                btlu_record(dev, name, cut=True) for name in BTLU_CUTS]}),
+                flush=True)
         else:
             print(json.dumps(multiphase_record(sys.argv[2], dev)),
                   flush=True)
@@ -3179,6 +3367,7 @@ def main():
     # phase; every other timed run starts after they have ended
     multiphase_24 = RecordProcess("multiphase_24")
     ball = RecordProcess("eikonal_ball")
+    cuts = RecordProcess("btlu_cuts")
     cpu = {g: CpuCases(g) for g in ("10", "11", "12", "13", "14")}
     try:
         phase_model_cases(dev, cpu["10"])
@@ -3189,12 +3378,18 @@ def main():
         stamp("phases 10 (i)-14 (i)")
         rec_24 = multiphase_24.result()
         rec_ball = ball.result()
+        rec_cuts = cuts.result()
     finally:
         multiphase_24.stop()
         ball.stop()
+        cuts.stop()
         for c in cpu.values():
             c.stop()
-    stamp("the wait for phases 11 (iv) and 12 (ii)'s ball")
+    stamp("the wait for phases 11 (iv), 11 (vi) and 12 (ii)'s ball")
+    print("== phase 11 (vi): the btlu device records' depth cuts (a child "
+          "process beside the (i) checks)\n" + rec_cuts["out"], flush=True)
+    check([r["name"] for r in rec_cuts["runs"]] == list(BTLU_CUTS),
+          "11 (vi) ran every depth cut")
     phase_model_records(dev)
     stamp("phase 10 (ii)")
     phase_btlu(dev, lvpp_a, rec_24)

@@ -107,8 +107,18 @@ def run_bench(n: int, device: str, pc: str = "mg",
                               mixed_precision=True, pc=pc, device=dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    print(f"# setup {time.time() - t0:.1f}s dofs {2 * solver.N}",
-          file=sys.stderr, flush=True)
+    setup = time.time() - t0
+    print(f"# setup {setup:.1f}s dofs {2 * solver.N}", file=sys.stderr,
+          flush=True)
+
+    # warm-up at bench shapes, as the reference bench's (bench.py:76-86):
+    # one Newton solve at alpha 1 from u = 0, psi = 1 captures the inner
+    # solver's chunk graphs outside the timed window; it returns its
+    # iterate and changes no state of the solver
+    t0 = time.time()
+    warmup_newton(solver)
+    warmup = time.time() - t0
+    print(f"# warmup {warmup:.1f}s", file=sys.stderr, flush=True)
 
     t0 = time.time()
     result = solver.solve_fused() if fused else solver.solve()
@@ -131,7 +141,17 @@ def run_bench(n: int, device: str, pc: str = "mg",
             "outer": result.outer_iterations,
             "converged": result.converged, "feasibility": feas,
             "cg_its": result.cg_its_total, "membw_gbps": round(gbps, 1),
-            "esz": esz}
+            "esz": esz, "setup_s": setup, "warmup_s": warmup}
+
+
+def warmup_newton(solver) -> None:
+    """One Newton solve of `solver` (a P1ObstacleSolver) at alpha 1 from
+    u = 0, psi = 1 (the reference bench's warm-up), synchronised."""
+    import torch
+    z = torch.zeros(solver.N, dtype=solver.dtype, device=solver.device)
+    solver._newton(z, torch.ones_like(z), z, z, 1.0)
+    if solver.device.type == "cuda":
+        torch.cuda.synchronize(solver.device)
 
 
 def run_bench_fd(n: int, device: str) -> dict:

@@ -23,10 +23,12 @@ Numerics: the LVPP saddle Jacobians are symmetric quasi-definite after
 Jacobi equilibration (latent block negative definite, primal block positive
 definite), for which unpivoted block LDL^T is strongly factorizable
 (Vanderbei); each block inverse still uses partially-pivoted LU inside
-`torch.linalg.inv`. The factor runs in f32 (default) or f64
-(`pc_factor_dtype`) and reaches f64 direction accuracy through iterative
-refinement against the assembled ELL operator, driven by the Newton solver
-(solve/newton.py `_bt_direction`, solve/nonlinear.py `fused_newton_btlu`).
+`torch.linalg.inv` (or, with `pc_factor_blockinv='schur'` and an f64
+factor, recursive block elimination: `_block_inv`). The factor runs in
+f32 (default) or f64 (`pc_factor_dtype`) and reaches f64 direction
+accuracy through iterative refinement against the assembled ELL
+operator, driven by the Newton solver (solve/newton.py
+`_bt_direction`, solve/nonlinear.py `fused_newton_btlu`).
 
 Every block product runs with TF32 off (`_exact_matmul`): a low-precision
 block product, compounded through the nb nested Schur steps, leaves a
@@ -50,20 +52,53 @@ from .loop import while_loop
 BLOCKINV_SCHEMES = ("ns", "schur")
 
 
-def _block_inv(M: torch.Tensor) -> torch.Tensor:
-    """Dense (batched) block inverse in the factor dtype: LU with partial
-    pivoting. The H100 has native f64, so the reference's f32-inverse
-    workarounds ('ns' Newton-Schulz, 'schur' recursive elimination) are
-    not needed; `pc_factor_blockinv` selects nothing here. inv_ex: no host
-    read of a singularity check a block (a singular block gives
-    non-finite entries, as the reference's inverse does)."""
+def _block_inv(M: torch.Tensor, algo: str = "ns") -> torch.Tensor:
+    """Dense (batched) block inverse in the factor dtype.
+
+    'ns' (default): LU with partial pivoting (`inv_ex`: no host read of a
+    singularity check a block; a singular block gives non-finite entries,
+    as the reference's inverse does). The reference's 'ns' is an f32
+    inverse refined by Newton-Schulz, a workaround for a device without
+    an f64 LU; the H100 has one, so 'ns' is the plain f64 inverse.
+
+    'schur' (f64 factors): recursive unpivoted 2x2 block elimination
+    (`_block_inv_schur`). At deep contact the equilibrated obstacle
+    saddle blocks carry off-diagonal u-psi entries ~1e8 (cond ~1e16): a
+    pivoted LU of the whole block mixes the two scales in its row swaps,
+    the block elimination keeps them apart (the blocks and their nested
+    Schur complements are symmetric quasi-definite, so unpivoted block
+    elimination is stable, Vanderbei) and equilibrates each leaf."""
+    if algo == "schur" and M.dtype == torch.float64:
+        return _block_inv_schur(M)
     return torch.linalg.inv_ex(M)[0]
 
 
+def _block_inv_schur(M: torch.Tensor, leaf: int = 128) -> torch.Tensor:
+    """inv(M) by recursive 2x2 block elimination (see _block_inv
+    'schur'), with leading batch axes. Leaf blocks are scaled to unit row
+    max-norm symmetrically, T M T with T = diag(1/sqrt(rownorm)), and
+    inverted by LU: inv(M) = T inv(TMT) T."""
+    n = M.shape[-1]
+    if n <= leaf:
+        t = 1.0 / torch.sqrt(torch.clamp(M.abs().amax(dim=-1), min=1e-300))
+        Xs = torch.linalg.inv_ex(t[..., :, None] * M * t[..., None, :])[0]
+        return t[..., :, None] * Xs * t[..., None, :]
+    k = n // 2
+    A = M[..., :k, :k]
+    B = M[..., :k, k:]
+    C = M[..., k:, :k]
+    D = M[..., k:, k:]
+    Ai = _block_inv_schur(A, leaf)
+    CAi = C @ Ai
+    Si = _block_inv_schur(D - CAi @ B, leaf)
+    AiB = Ai @ B
+    top = torch.cat([Ai + AiB @ (Si @ CAi), -AiB @ Si], dim=-1)
+    bot = torch.cat([-Si @ CAi, Si], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
 def _check_blockinv(blockinv: str):
-    """Validate `pc_factor_blockinv` as the reference does. The option is
-    kept only so that the reference's option sets are accepted: every
-    scheme is `_block_inv` here."""
+    """Validate `pc_factor_blockinv` as the reference does."""
     if blockinv not in BLOCKINV_SCHEMES:
         raise ValueError(f"pc_factor_blockinv must be one of "
                          f"{BLOCKINV_SCHEMES}, got {blockinv!r}")
@@ -375,13 +410,23 @@ class LineBlocking:
 
 
 def _equilibrate(ell_data, ell_cols):
-    """(data_s, s): S A S with s = |diag|^-1/2 (1 where the diagonal is
-    zero), f64."""
+    """(data_s, s): S A S with s = |diag|^-1/2, f64; s = 1 where the
+    diagonal is zero to the f64 rounding of its row (|diag| <= eps
+    max_j |A_ij|), as the reference leaves a zero diagonal unscaled.
+
+    At deep contact the obstacle's latent rows carry diagonals
+    exp(psi)-small (1e-75 on the disk at res 0.03, alpha 935) beside
+    O(h^2) couplings: scaled by them, the couplings reach ~1e32, their
+    squares in the block elimination swamp f64, and the factor breaks
+    down (LVPP step 7 of example 01's disk). Left unscaled, such a row
+    is a saddle row with a tiny diagonal, which the pivoted block
+    inverses take."""
     row = torch.arange(ell_data.shape[0], device=ell_data.device)[:, None]
     diag = torch.sum(torch.where(ell_cols == row, ell_data,
                                  torch.zeros_like(ell_data)), dim=1)
-    s = torch.where(torch.abs(diag) > 1e-300,
-                    1.0 / torch.sqrt(torch.abs(diag)),
+    eps = torch.finfo(ell_data.dtype).eps
+    live = torch.abs(diag) > eps * ell_data.abs().amax(dim=1)
+    s = torch.where(live, 1.0 / torch.sqrt(torch.abs(diag)),
                     torch.ones_like(diag))
     return s[:, None] * ell_data * s[ell_cols], s
 
@@ -422,7 +467,7 @@ def bt_assemble(ell_data, ell_cols, maps, nb: int, bs: int,
             U.reshape(nb - 1, bs, bs), s)
 
 
-def bt_factor(D, L, U):
+def bt_factor(D, L, U, blockinv: str = "ns"):
     """Block-Thomas factorization: returns (Minv, T) with
     M_k = D_k - L_{k-1} Minv_{k-1} U_{k-1} (Schur recursion) and
     T_k = Minv_k U_k; nb dependent steps of one block inverse and two
@@ -433,11 +478,12 @@ def bt_factor(D, L, U):
     Minv = torch.empty_like(D)
     T = torch.empty_like(U)
     with _exact_matmul():
-        Minv[..., 0, :, :] = _block_inv(D[..., 0, :, :])
+        Minv[..., 0, :, :] = _block_inv(D[..., 0, :, :], blockinv)
         for k in range(1, nb):
             T[..., k - 1, :, :] = Minv[..., k - 1, :, :] @ U[..., k - 1, :, :]
             Minv[..., k, :, :] = _block_inv(
-                D[..., k, :, :] - L[..., k - 1, :, :] @ T[..., k - 1, :, :])
+                D[..., k, :, :] - L[..., k - 1, :, :] @ T[..., k - 1, :, :],
+                blockinv)
     return Minv, T
 
 
@@ -498,7 +544,7 @@ class BlockTriFactorization:
         maps = blocking.device_maps(data64.device)
         D, L, U, s = bt_assemble(data64, arrays["ell_cols"], maps,
                                  blocking.nb, blocking.bs, dtype)
-        self.Minv, self.T = bt_factor(D, L, U)
+        self.Minv, self.T = bt_factor(D, L, U, blockinv)
         self.L = L
         if (apply_dtype or dtype) == "f32" and dtype != "f32":
             self.Minv = self.Minv.to(torch.float32)
@@ -531,7 +577,7 @@ def _cr_pad(D, L, U):
     return (torch.cat([D, eye]), torch.cat([L, Z]), torch.cat([U, Z]))
 
 
-def bt_factor_cr(D, L, U):
+def bt_factor_cr(D, L, U, blockinv: str = "ns"):
     """Block CYCLIC REDUCTION factorization — the log-depth, batched
     alternative to the sequential block-Thomas recursion (bt_factor):
     ceil(log2 nb) levels of ONE batched inverse and six batched matmuls
@@ -554,7 +600,7 @@ def bt_factor_cr(D, L, U):
         n = D.shape[0]
         levels = []
         while n > 1:
-            Dinv_e = _block_inv(D[0::2])
+            Dinv_e = _block_inv(D[0::2], blockinv)
             Do = D[1::2]
             Ll, Lr = L[0::2], L[1::2]
             Ul, Ur = U[0::2], U[1::2]
@@ -565,7 +611,7 @@ def bt_factor_cr(D, L, U):
             U = -(G_r[:-1] @ Ul[1:])
             levels.append((Dinv_e, G_l, G_r, Lr, Ul))
             n //= 2
-        return tuple(levels), _block_inv(D)
+        return tuple(levels), _block_inv(D, blockinv)
 
 
 def _mv(A, v):
@@ -629,7 +675,7 @@ class CRBlockTriFactorization:
         maps = blocking.device_maps(data64.device)
         D, L, U, s = bt_assemble(data64, arrays["ell_cols"], maps,
                                  blocking.nb, blocking.bs, dtype)
-        self.levels, self.root = bt_factor_cr(D, L, U)
+        self.levels, self.root = bt_factor_cr(D, L, U, blockinv)
         if (apply_dtype or dtype) == "f32" and dtype != "f32":
             self.levels, self.root = _cr_cast(self.levels, self.root,
                                               torch.float32)
@@ -668,7 +714,8 @@ def _dense_block(flat_p, src, tgt, bs, pad=None):
     return M[:bsq].reshape(bs, bs)
 
 
-def bt_factor_streamed(flat_p, sm, nb: int, bs: int):
+def bt_factor_streamed(flat_p, sm, nb: int, bs: int,
+                       blockinv: str = "ns"):
     """Memory-lean block-Thomas factor: only the (nb, bs, bs) Minv stack
     is materialized; D/L/U blocks are scattered from the ELL data inside
     each step and never stored. Live set ~ (nb + 6) bs^2 vs the dense
@@ -677,7 +724,8 @@ def bt_factor_streamed(flat_p, sm, nb: int, bs: int):
                        device=flat_p.device)
     with _exact_matmul():
         Minv[0] = _block_inv(_dense_block(flat_p, sm["d_src"][0],
-                                          sm["d_tgt"][0], bs, sm["pad"][0]))
+                                          sm["d_tgt"][0], bs, sm["pad"][0]),
+                             blockinv)
         for k in range(1, nb):
             Dk = _dense_block(flat_p, sm["d_src"][k], sm["d_tgt"][k], bs,
                               sm["pad"][k])
@@ -685,7 +733,7 @@ def bt_factor_streamed(flat_p, sm, nb: int, bs: int):
                               sm["l_i"][k - 1] * bs + sm["l_j"][k - 1], bs)
             Ukm1 = _dense_block(flat_p, sm["u_src"][k - 1],
                                 sm["u_i"][k - 1] * bs + sm["u_j"][k - 1], bs)
-            Minv[k] = _block_inv(Dk - Lk @ (Minv[k - 1] @ Ukm1))
+            Minv[k] = _block_inv(Dk - Lk @ (Minv[k - 1] @ Ukm1), blockinv)
     return Minv
 
 
@@ -741,7 +789,7 @@ class StreamedBlockTriFactorization:
         self.flat_p, self.s = bt_equilibrate(data64, arrays["ell_cols"],
                                              dtype)
         self.Minv = bt_factor_streamed(self.flat_p, self._sm,
-                                       blocking.nb, blocking.bs)
+                                       blocking.nb, blocking.bs, blockinv)
         if (apply_dtype or dtype) == "f32" and dtype != "f32":
             # see BlockTriFactorization: f64 factor, f32 apply
             self.Minv = self.Minv.to(torch.float32)

@@ -1,7 +1,9 @@
 """The port's bench subcommand on the CPU at small sizes: `--mode fd`
 prints the keys of the reference bench's FD worker (bench.py _worker_fd)
-with counts equal to the JAX package's fd_obstacle_solve, and its stream
-worker the three keys of the reference's, at small buffers."""
+with counts equal to the JAX package's fd_obstacle_solve, its stream
+worker the three keys of the reference's, at small buffers, and its fem
+worker warms up before its timed solve (bench.py _worker_fem), which
+keeps the counts and bits of a solve with no warm-up."""
 
 import json
 
@@ -13,6 +15,8 @@ from proximalgalerkin_tpu.models.obstacle_fd import \
 
 from proximalgalerkin_torch import cli
 from proximalgalerkin_torch.cli import main
+from proximalgalerkin_torch.mesh import rectangle_mesh
+from proximalgalerkin_torch.models.obstacle_p1 import P1ObstacleSolver
 
 FD_KEYS = {"mode", "elapsed", "n", "dofs", "newton", "outer", "converged",
            "feasibility"}
@@ -73,3 +77,43 @@ def test_stream_mode_cli(capsys, monkeypatch):
           "--device", "cpu"])
     assert seen == [(65 ** 2, "cpu", 8, (1.0, 0.6))]
     assert _json_line(capsys) == fake(0, "cpu")
+
+
+FEM_KEYS = {"mode", "elapsed", "n", "dofs", "newton", "outer", "converged",
+            "feasibility", "cg_its", "membw_gbps", "esz", "setup_s",
+            "warmup_s"}
+
+
+def test_fem_mode_warms_up(capsys, monkeypatch):
+    """`bench --pc jacobi` (the fem worker) at n = 16 prints setup_s and
+    warmup_s beside the existing keys; its timed solve, after the warm-up
+    Newton solve, has the counts and the bits of u of a solve with no
+    warm-up, and a second call in the same process does too. (On the
+    card, chip_smoke.py's phases 6 and 7 check that the timed 1024^2
+    solves capture no chunk graph.)"""
+    pc, calls = "jacobi", 2
+    real, solves = P1ObstacleSolver.solve, []
+
+    def spy(solver, *args, **kwargs):
+        solves.append(real(solver, *args, **kwargs))
+        return solves[-1]
+
+    monkeypatch.setattr(P1ObstacleSolver, "solve", spy)
+    outs = []
+    for _ in range(calls):
+        main(["bench", "-n", "16", "--pc", pc, "--device", "cpu"])
+        out, err = capsys.readouterr()
+        outs.append(json.loads(out.strip().splitlines()[-1]))
+        assert "# warmup" in err
+    cold = real(P1ObstacleSolver(
+        rectangle_mesh(16, 16, p0=(-1.0, -1.0), p1=(1.0, 1.0)),
+        alpha_cap=1e2, outer_tol=1e-8, mixed_precision=True, pc=pc,
+        device="cpu"))
+    assert len(solves) == calls
+    for out, res in zip(outs, solves):
+        assert set(out) == FEM_KEYS
+        assert out["setup_s"] > 0 and out["warmup_s"] > 0
+        assert (out["outer"], out["newton"], out["cg_its"]) == (
+            cold.outer_iterations, cold.newton_its, cold.cg_its_total)
+        assert res.newton_per_outer == cold.newton_per_outer
+        assert res.u.tobytes() == cold.u.tobytes()

@@ -339,6 +339,60 @@ def test_block_inv_f64_cross_scale():
     assert scaled < 1e-9, scaled
 
 
+def test_block_inv_schur_cross_scale():
+    """pc_factor_blockinv 'schur' on the reference's cross-scale block
+    (tests/test_blocktri.py::test_block_inv_schur_cross_scale, leaf 32):
+    the recursive block elimination meets the reference test's row-scaled
+    residual bound, batched blocks give each block's own inverse, and an
+    f32 block takes the LU inverse as in the reference."""
+    rng = np.random.default_rng(3)
+    n = 96
+    k = n // 2
+    Q = rng.standard_normal((k, k))
+    A = Q @ Q.T / k + np.eye(k)
+    B = 1e8 * rng.standard_normal((k, k)) / np.sqrt(k)
+    Q2 = rng.standard_normal((k, k))
+    D = Q2 @ Q2.T / k + np.eye(k)
+    M = np.block([[A, B], [B.T, -D]])
+    X = bt._block_inv_schur(torch.as_tensor(M), leaf=32).numpy()
+    assert np.isfinite(X).all()
+    rs = np.abs(M).sum(axis=1)
+    scaled = float((np.abs(M @ X - np.eye(n)) / rs[:, None]).max())
+    assert scaled < 1e-9, scaled
+    Mb = torch.as_tensor(np.stack([M, M.T @ M / 1e16 + np.eye(n)]))
+    Xb = bt._block_inv_schur(Mb, leaf=32)
+    for i in range(2):
+        assert torch.equal(Xb[i], bt._block_inv_schur(Mb[i], leaf=32))
+    M32 = torch.as_tensor(M[:k, :k], dtype=torch.float32)
+    assert torch.equal(bt._block_inv(M32, "schur"), bt._block_inv(M32))
+
+
+def test_equilibrate_leaves_rounding_zero_diagonals_unscaled():
+    """_equilibrate scales each row by |diag|^-1/2, the reference's scale
+    to 1e-15, except where the diagonal is zero to f64 rounding of its
+    row (|diag| <= eps max|row|): that row keeps scale 1, as the
+    reference keeps a zero diagonal."""
+    rng = np.random.default_rng(5)
+    N, K = 40, 5
+    rows = np.arange(N)
+    cols = np.stack([rows] + [(rows + rng.integers(1, N, N)) % N
+                              for _ in range(K - 1)], axis=1)
+    data = rng.standard_normal((N, K))
+    data[:, 0] = np.abs(data[:, 0]) + 0.5
+    tiny = np.array([3, 17, 29])
+    data[tiny, 0] = [1e-75, 1e-40, 0.0]
+    data_s, s = bt._equilibrate(torch.as_tensor(data), torch.as_tensor(cols))
+    _, ref_s = ref_bt.bt_equilibrate(jnp.asarray(data), jnp.asarray(cols),
+                                     "f64")
+    want = np.ones(N)
+    live = np.setdiff1d(np.arange(N), tiny)
+    want[live] = 1.0 / np.sqrt(np.abs(data[live, 0]))
+    assert np.array_equal(s.numpy(), want)
+    assert np.array_equal(data_s.numpy(), want[:, None] * data * want[cols])
+    assert np.allclose(s.numpy()[live], np.asarray(ref_s)[live],
+                       rtol=1e-15, atol=0.0)
+
+
 def test_bad_options_raise(grad16):
     """The reference's loud refusals: an unknown pc_factor_algo, CR on the
     streamed layout, an f64 apply of an f32 factor; and an unknown
@@ -361,11 +415,13 @@ def test_bad_options_raise(grad16):
 def test_obstacle_40_btlu_outcome_matches_reference(dtype):
     """The obstacle LVPP on the 40^2 P1 square (phase 9's protocol of
     chip_smoke.py: double-exponential alpha to 1e2, tol_exit 1e-6) with
-    btlu directions at ksp_rtol 1e-9, through both packages: the same
-    outer count, per-step Newton counts and converged flag. With the f32
-    factor both break down (the unpivoted block elimination of the saddle
-    at large alpha); with the f64 factor both converge, and x agrees to
-    1e-8 relative."""
+    btlu directions at ksp_rtol 1e-9: with either factor dtype the port
+    takes the reference's f64 btlu run's outer count and per-step Newton
+    counts, converges as it does, and x agrees to 1e-8 relative. (The
+    reference's f32 factor breaks down at outer step 6: its Jacobi
+    equilibration scales latent rows by diagonals near underflow, and the
+    block elimination overflows f32; the port leaves a row whose diagonal
+    is zero to rounding unscaled, la/blocktri._equilibrate.)"""
     from proximalgalerkin_tpu.mesh import rectangle_mesh as ref_rect
     from proximalgalerkin_tpu.models.obstacle import \
         setup_obstacle_problem as ref_setup_obstacle
@@ -373,16 +429,19 @@ def test_obstacle_40_btlu_outcome_matches_reference(dtype):
     from proximalgalerkin_torch.models.obstacle import \
         setup_obstacle_problem
     kw = dict(polynomial_order=1, alpha_scheme="double_exponential",
-              alpha_max=1e2, tol_exit=1e-6, verbose=False,
-              solver_options={"ksp_type": "preonly", "pc_type": "btlu",
-                              "ksp_rtol": 1e-9, "pc_factor_dtype": dtype})
+              alpha_max=1e2, tol_exit=1e-6, verbose=False)
+
+    def opts(fdt):
+        return {"solver_options": {"ksp_type": "preonly", "pc_type": "btlu",
+                                   "ksp_rtol": 1e-9, "pc_factor_dtype": fdt}}
+
     box = dict(p0=(-1.0, -1.0), p1=(1.0, 1.0))
-    r_ref = ref_setup_obstacle(ref_rect(40, 40, **box), **kw).solve()
+    r_ref = ref_setup_obstacle(ref_rect(40, 40, **box), **kw,
+                               **opts("f64")).solve()
     r = setup_obstacle_problem(rectangle_mesh(40, 40, **box), device="cpu",
-                               **kw).solve()
+                               **kw, **opts(dtype)).solve()
     assert r.iterations == r_ref.iterations
     assert list(r.newton_steps) == list(r_ref.newton_steps)
-    assert r.converged == r_ref.converged == (dtype == "f64")
-    if r.converged:
-        ref_x = np.asarray(r_ref.x)
-        assert _rel(r.x.numpy(), ref_x) < 1e-8
+    assert r.converged and r_ref.converged
+    ref_x = np.asarray(r_ref.x)
+    assert _rel(r.x.numpy(), ref_x) < 1e-8

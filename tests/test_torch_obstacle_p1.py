@@ -189,7 +189,8 @@ def test_alpha_schedule_matches_reference():
 @pytest.mark.parametrize("pc,fused", [("mg", False), ("jacobi", True)])
 def test_bench_cli_on_cpu(pc, fused, capsys):
     """`bench` runs both inner solves and both entry points and prints
-    the reference bench's JSON keys."""
+    the reference bench's JSON keys, with the seconds of its setup and
+    of its warm-up Newton solve beside them."""
     from proximalgalerkin_torch.cli import main
     main(["bench", "-n", "8", "--device", "cpu", "--pc", pc]
          + (["--fused"] if fused else []))
@@ -198,7 +199,7 @@ def test_bench_cli_on_cpu(pc, fused, capsys):
     assert out["cg_its"] > 0 and out["feasibility"] >= -1e-10
     assert set(out) == {"mode", "elapsed", "n", "dofs", "newton", "outer",
                         "converged", "feasibility", "cg_its", "membw_gbps",
-                        "esz"}
+                        "esz", "setup_s", "warmup_s"}
 
 
 @pytest.mark.parametrize("mixed", [False, True])
