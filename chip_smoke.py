@@ -161,8 +161,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    first SIGNORINI_WIDTH_STEPS LVPP steps, counts pinned likewise; each
    with its seconds, PhaseTimer shares, peak device memory and zero
    launches of the port's CUDA kernels; (iv) one Signorini Newton step
-   inside utils.profiling.device_trace with an annotate region (the
-   trace file, the region and the card's kernels in it), then `bench
+   inside utils.profiling.device_trace in a span of its own (the trace
+   file, the span's range and the card's kernels in it), then `bench
    --mode stream` and `bench --mode fd -n 1024` in a child each (the FD
    counts equal phase 8's);
 14. the distributed layer (parallel/: comm.py, halo.py, sharding.py,
@@ -214,6 +214,8 @@ import time
 
 import numpy as np
 import torch
+
+from proximalgalerkin_torch.core.logging import tracing
 
 SEED = 0
 T_START = time.perf_counter()
@@ -1021,7 +1023,7 @@ def fd_iteration_bytes(N: int) -> int:
 
 def phase_fd(dev, N: int = FD_N):
     print("== phase 8: FD obstacle (models/obstacle_fd.py)", flush=True)
-    from proximalgalerkin_torch.la.loop import while_loop
+    from proximalgalerkin_torch.core.logging import counter
     from proximalgalerkin_torch.models.obstacle_fd import fd_obstacle_solve
     kw = dict(outer_tol=1e-8, alpha_cap=1e2)
     # the card against the port's own CPU run of the same code, at N = 65
@@ -1035,12 +1037,12 @@ def phase_fd(dev, N: int = FD_N):
     check(du <= 1e-10, "N=65 u")
 
     reset_counters()
-    reads = while_loop.host_reads
+    reads = counter("host_reads")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = fd_obstacle_solve(N, device=dev, **kw)
     elapsed = time.perf_counter() - t0
-    reads = while_loop.host_reads - reads
+    reads = counter("host_reads") - reads
     counts = read_counters()
     feas = float((res.u - res.phi).min())
     ms_it = elapsed * 1e3 / max(res.cg_its, 1)
@@ -2322,8 +2324,8 @@ def phase_contact(dev, fd_res=None):
 def phase_profile(dev):
     """One Signorini Newton step (the half-disk at res 0.04, snes_max_it
     1: the LVPP stops after it with DIVERGED_MAX_IT) inside
-    utils.profiling.device_trace with an annotate region: the trace file
-    exists and holds the region and the card's kernels; the step's
+    utils.profiling.device_trace inside a span of its own: the trace file
+    exists and holds the span's range and the card's kernels; the step's
     seconds with and without the profiler."""
     import contextlib
     import glob
@@ -2331,7 +2333,8 @@ def phase_profile(dev):
     import os
     import tempfile
     from proximalgalerkin_torch.models.signorini import solve_signorini
-    from proximalgalerkin_torch.utils.profiling import annotate, device_trace
+    from proximalgalerkin_torch.core.logging import span
+    from proximalgalerkin_torch.utils.profiling import device_trace
     region = "signorini_newton_step"
 
     def step():
@@ -2349,7 +2352,7 @@ def phase_profile(dev):
     with tempfile.TemporaryDirectory() as logdir:
         t0 = time.perf_counter()
         with device_trace(logdir):
-            with annotate(region):
+            with span(region):
                 step()
         traced = time.perf_counter() - t0
         files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
@@ -2357,7 +2360,7 @@ def phase_profile(dev):
         size = os.path.getsize(files[0])
         with open(files[0]) as f:
             events = json.load(f)["traceEvents"]
-    marks = [e for e in events if e.get("name") == region
+    marks = [e for e in events if e.get("name") == "pg." + region
              and e.get("ph") == "X"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
     busy = sum(e.get("dur", 0) for e in kernels) / 1e6
@@ -3323,7 +3326,8 @@ def main():
     if sys.argv[1:2] == ["--sizes"]:
         bad = set(sys.argv[2:]) - set(SIZES)
         check(not bad, f"--sizes takes names of {SIZES}, not {bad}")
-        return sizes(sys.argv[2:] or SIZES)
+        with tracing():
+            return sizes(sys.argv[2:] or SIZES)
     if sys.argv[1:2] == ["--cpu-cases"]:
         import pickle
         t0 = time.perf_counter()
@@ -3334,16 +3338,17 @@ def main():
     if sys.argv[1:2] == ["--record"]:
         dev = torch.device("cuda", 0)
         torch.cuda.set_device(dev)
-        if sys.argv[2] == "eikonal_ball":
-            ball_record(dev)              # a failed check raises
-            print(json.dumps({"key": "eikonal_ball"}), flush=True)
-        elif sys.argv[2] == "btlu_cuts":
-            print(json.dumps({"key": "btlu_cuts", "runs": [
-                btlu_record(dev, name, cut=True) for name in BTLU_CUTS]}),
-                flush=True)
-        else:
-            print(json.dumps(multiphase_record(sys.argv[2], dev)),
-                  flush=True)
+        with tracing():
+            if sys.argv[2] == "eikonal_ball":
+                ball_record(dev)              # a failed check raises
+                print(json.dumps({"key": "eikonal_ball"}), flush=True)
+            elif sys.argv[2] == "btlu_cuts":
+                print(json.dumps({"key": "btlu_cuts", "runs": [
+                    btlu_record(dev, name, cut=True) for name in BTLU_CUTS]}),
+                    flush=True)
+            else:
+                print(json.dumps(multiphase_record(sys.argv[2], dev)),
+                      flush=True)
         return
     phase_card()
     dev = torch.device("cuda", 0)
@@ -3359,47 +3364,49 @@ def main():
     stamp("phases 1-7")
     fd_res = phase_fd(dev)
     stamp("phase 8")
-    lvpp_a = phase_lvpp(dev)
-    stamp("phase 9")
-    # 11 (iv) and 12 (ii)'s ball, host SuperLU for about 2 minutes each,
-    # run in child processes beside the card-against-CPU checks, which
-    # time nothing, and so do the CPU halves of those checks, one child a
-    # phase; every other timed run starts after they have ended
-    multiphase_24 = RecordProcess("multiphase_24")
-    ball = RecordProcess("eikonal_ball")
-    cuts = RecordProcess("btlu_cuts")
-    cpu = {g: CpuCases(g) for g in ("10", "11", "12", "13", "14")}
-    try:
-        phase_model_cases(dev, cpu["10"])
-        phase_btlu_cases(dev, cpu["11"])
-        phase_schur_cases(dev, cpu["12"])
-        phase_contact_cases(dev, cpu["13"])
-        phase_dist_cases(dev, cpu["14"])
-        stamp("phases 10 (i)-14 (i)")
-        rec_24 = multiphase_24.result()
-        rec_ball = ball.result()
-        rec_cuts = cuts.result()
-    finally:
-        multiphase_24.stop()
-        ball.stop()
-        cuts.stop()
-        for c in cpu.values():
-            c.stop()
-    stamp("the wait for phases 11 (iv), 11 (vi) and 12 (ii)'s ball")
-    print("== phase 11 (vi): the btlu device records' depth cuts (a child "
-          "process beside the (i) checks)\n" + rec_cuts["out"], flush=True)
-    check([r["name"] for r in rec_cuts["runs"]] == list(BTLU_CUTS),
-          "11 (vi) ran every depth cut")
-    phase_model_records(dev)
-    stamp("phase 10 (ii)")
-    phase_btlu(dev, lvpp_a, rec_24)
-    stamp("phase 11 (ii)-(v)")
-    phase_schur(dev, rec_ball)
-    stamp("phase 12 (ii)-(iv)")
-    phase_contact(dev, fd_res)
-    stamp("phase 13 (ii)-(iv)")
-    phase_distributed(dev)
-    stamp("phase 14 (ii)-(iii)")
+    # the PhaseTimer reports of phases 9-14 are synchronised: tracing on
+    with tracing():
+        lvpp_a = phase_lvpp(dev)
+        stamp("phase 9")
+        # 11 (iv) and 12 (ii)'s ball, host SuperLU for about 2 minutes each,
+        # run in child processes beside the card-against-CPU checks, which
+        # time nothing, and so do the CPU halves of those checks, one child a
+        # phase; every other timed run starts after they have ended
+        multiphase_24 = RecordProcess("multiphase_24")
+        ball = RecordProcess("eikonal_ball")
+        cuts = RecordProcess("btlu_cuts")
+        cpu = {g: CpuCases(g) for g in ("10", "11", "12", "13", "14")}
+        try:
+            phase_model_cases(dev, cpu["10"])
+            phase_btlu_cases(dev, cpu["11"])
+            phase_schur_cases(dev, cpu["12"])
+            phase_contact_cases(dev, cpu["13"])
+            phase_dist_cases(dev, cpu["14"])
+            stamp("phases 10 (i)-14 (i)")
+            rec_24 = multiphase_24.result()
+            rec_ball = ball.result()
+            rec_cuts = cuts.result()
+        finally:
+            multiphase_24.stop()
+            ball.stop()
+            cuts.stop()
+            for c in cpu.values():
+                c.stop()
+        stamp("the wait for phases 11 (iv), 11 (vi) and 12 (ii)'s ball")
+        print("== phase 11 (vi): the btlu device records' depth cuts (a child "
+              "process beside the (i) checks)\n" + rec_cuts["out"], flush=True)
+        check([r["name"] for r in rec_cuts["runs"]] == list(BTLU_CUTS),
+              "11 (vi) ran every depth cut")
+        phase_model_records(dev)
+        stamp("phase 10 (ii)")
+        phase_btlu(dev, lvpp_a, rec_24)
+        stamp("phase 11 (ii)-(v)")
+        phase_schur(dev, rec_ball)
+        stamp("phase 12 (ii)-(iv)")
+        phase_contact(dev, fd_res)
+        stamp("phase 13 (ii)-(iv)")
+        phase_distributed(dev)
+        stamp("phase 14 (ii)-(iii)")
     print(f"smoke run {time.perf_counter() - T_START:.1f} s", flush=True)
 
     def entry(name, source, replaces, launches, timing, **extra):

@@ -7,7 +7,8 @@ The port of the JAX package beside it, which stays the reference.
 Module paths and public names mirror the reference's so that each
 counterpart is easy to find:
 
-  core/        options (SolverOptions), SNES reasons, monitors, PhaseTimer
+  core/        options (SolverOptions), SNES reasons, monitors, the span
+               and counter recorder (span, count, tracing; PhaseTimer)
   elements/, mesh/, spaces/, native/, io/   host numpy setup, copied as is
                (mesh/unstructured.py: the disk meshes; manifolds.py: the
                Möbius strip; parametric.py: the ball and half-disk /

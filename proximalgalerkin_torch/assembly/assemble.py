@@ -36,6 +36,7 @@ import numpy as np
 import torch
 from torch.func import jacfwd, jvp, vmap
 
+from ..core.logging import count, span
 from ..elements.quadrature import cell_quadrature
 from ..spaces.space import MixedSpace
 from .geometry import cell_geometry
@@ -393,10 +394,11 @@ class VolumeForm:
         working set."""
         data = self.cell_data if data is None else data
         x = self._as(x)
-        parts = [self._element_matrices_block(x, c, consts, d)
-                 for c, d in self._blocks(coeffs, data,
-                                          self.ELEMENT_MATRIX_CHUNK)]
-        return parts[0] if len(parts) == 1 else torch.cat(parts)
+        with span("element_matrices"):
+            parts = [self._element_matrices_block(x, c, consts, d)
+                     for c, d in self._blocks(coeffs, data,
+                                              self.ELEMENT_MATRIX_CHUNK)]
+            return parts[0] if len(parts) == 1 else torch.cat(parts)
 
     def _gphi(self, f, G):
         return torch.einsum("eqdt,qit->eqid", G, self.tab[f][1])
@@ -452,6 +454,7 @@ class VolumeForm:
         with phase("assembly"):
             Ae = self.element_matrices(x, coeffs, consts)
         with phase("host_transfer"):
+            count("host_reads")
             Ae = Ae.cpu().numpy()
         with phase("csr"):
             gi = self.local_indices

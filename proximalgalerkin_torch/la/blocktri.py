@@ -47,6 +47,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..core.logging import count, span
 from .loop import while_loop
 
 BLOCKINV_SCHEMES = ("ns", "schur")
@@ -847,23 +848,33 @@ def refine(solve: Callable, Av: Callable, b, stop2, passes: int,
     host read a pass. on_pass(p, rn2), if given, sees each tested residual.
 
     -> (dx, reached, p): reached (0-dim bool tensor) whether the last
-    residual is within stop2, p the number of corrections made."""
-    dx = solve(b)
-    r = b - Av(dx)
+    residual is within stop2, p the number of corrections made. Each
+    factor apply is the span `bt.apply`, each residual `bt.residual`, and
+    each correction counts one `bt.refine_passes`."""
+    def residual(dx):
+        with span("bt.residual"):
+            return b - Av(dx)
+
+    with span("bt.apply"):
+        dx = solve(b)
+    r = residual(dx)
     inf = torch.full((), float("inf"), dtype=b.dtype, device=b.device)
     i0 = torch.zeros((), dtype=torch.int64, device=b.device)
 
     def cond(c):
         p, _, _, rn2, rn2_prev = c
         if on_pass is not None:
+            count("host_reads", 2)
             on_pass(int(p), float(rn2))
         live = (p < passes) & ~(rn2 <= stop2) & ~(rn2 > 0.49 * rn2_prev)
         return live & torch.isfinite(rn2) if stop_on_nan else live
 
     def body(c):
         p, dx, r, rn2, _ = c
-        dx = dx + solve(r)
-        r = b - Av(dx)
+        count("bt.refine_passes")
+        with span("bt.apply"):
+            dx = dx + solve(r)
+        r = residual(dx)
         return p + 1, dx, r, torch.dot(r, r), rn2
 
     p, dx, _, rn2, _ = while_loop(cond, body,

@@ -13,8 +13,8 @@ chunk = 1 is the plain loop (one read per iteration); callers whose body
 is itself a chunked loop (a refinement pass around a Krylov solve, a
 Newton step) use it, since a masked pass would still run its inner solve.
 
-`while_loop.host_reads` counts the condition reads, so tests can check
-how often a solve waited on the host.
+Each condition read counts one `host_reads` (core/logging.count), so
+tests and the benchmark can see how often a solve waited on the host.
 """
 
 from __future__ import annotations
@@ -22,6 +22,8 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+
+from ..core.logging import count
 
 CHUNK = 64
 
@@ -37,16 +39,14 @@ def while_loop(cond: Callable, body: Callable, state, chunk: int = CHUNK):
     holds; `state` is a tuple of tensors (nested tuples allowed)."""
     if chunk <= 1:
         while True:
-            while_loop.host_reads += 1
+            count("host_reads")
             if not bool(cond(state)):
                 return state
             state = body(state)
     while True:
         for _ in range(chunk):
             state = _select(cond(state), body(state), state)
-        while_loop.host_reads += 1
+        count("host_reads")
         if not bool(cond(state)):
             return state
 
-
-while_loop.host_reads = 0

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from ..assembly.geometry import cell_geometry
+from ..core.logging import count, span
 from ..elements.quadrature import cell_quadrature
 from ..la.dia import DiaMatrix
 from ..la.ell import EllMatrix, EllPattern
@@ -398,6 +399,7 @@ class P1ObstacleSolver:
         inner = interior > 0
         g_u, g_p = self.residual(u, psi, psi_k, alpha)
         norm0 = torch.sqrt(torch.dot(g_u, g_u) + torch.dot(g_p, g_p))
+        count("host_reads")
         nrm_h = float(norm0)
         # relative tolerance with an absolute floor
         stop_h = max(self.newton_tol * nrm_h, self.newton_atol)
@@ -407,88 +409,103 @@ class P1ObstacleSolver:
         it = 0
         cg_total = 0
         while it < self.newton_max and nrm_h > stop_h:
-            nrm_in_h = nrm_h
-            g_u, g_p = self.residual(u, psi, psi_k, alpha)
-            d = M_L * torch.exp(psi)              # underflow to 0 is fine
-            row_scale = alpha * diagA + M_L
-            active = inner & (d * KAPPA_MAX * row_scale < M_L * M_L)
-            free = inner & ~active
-            dsafe = torch.clamp_min(d, 1e-300)
-            m2d = torch.where(free, M_L * M_L / dsafe, 0.0)
-            du_a = torch.where(active,
-                               -g_p / M_L - (d / (M_L * M_L)) * g_u, 0.0)
-            rhs = torch.where(
-                free, -g_u - (M_L / dsafe) * g_p
-                - alpha * self._spmv(A, du_a), 0.0)
+            with span("p1.newton_step"):
+                nrm_in_h = nrm_h
+                g_u, g_p = self.residual(u, psi, psi_k, alpha)
+                d = M_L * torch.exp(psi)              # underflow to 0 is fine
+                row_scale = alpha * diagA + M_L
+                active = inner & (d * KAPPA_MAX * row_scale < M_L * M_L)
+                free = inner & ~active
+                dsafe = torch.clamp_min(d, 1e-300)
+                m2d = torch.where(free, M_L * M_L / dsafe, 0.0)
+                du_a = torch.where(active,
+                                   -g_p / M_L - (d / (M_L * M_L)) * g_u, 0.0)
+                rhs = torch.where(
+                    free, -g_u - (M_L / dsafe) * g_p
+                    - alpha * self._spmv(A, du_a), 0.0)
 
-            def S(v):
-                vf = torch.where(free, v, 0.0)
-                return torch.where(free, alpha * self._spmv(A, vf) + m2d * v,
-                                   v)
+                def S(v):
+                    vf = torch.where(free, v, 0.0)
+                    return torch.where(
+                        free, alpha * self._spmv(A, vf) + m2d * v, v)
 
-            diagS = torch.where(free, alpha * diagA + m2d, 1.0)
-            if not self.mixed_precision:
-                if self.pc == "mg":
-                    # f64 CG, f32 V-cycle PC on the unscaled operator
-                    w_mg = torch.where(free, m2d, mg.PIN).to(f32)
-                    mgpc = self._mg_setup(
-                        float(np.float32(alpha)
-                              * np.float32(self._mg_scale)), w_mg)
-                    w, cg_its = mg.pcg(
-                        S, rhs, lambda r: mgpc(r.to(f32)).to(r.dtype),
-                        self.cg_tol, self.cg_max, stall_guard=0.0)
+                diagS = torch.where(free, alpha * diagA + m2d, 1.0)
+                if not self.mixed_precision:
+                    with span("p1.inner_solve"):
+                        if self.pc == "mg":
+                            # f64 CG, f32 V-cycle PC on the unscaled operator
+                            w_mg = torch.where(free, m2d, mg.PIN).to(f32)
+                            mgpc = self._mg_setup(
+                                float(np.float32(alpha)
+                                      * np.float32(self._mg_scale)), w_mg)
+                            w, cg_its = mg.pcg(
+                                S, rhs,
+                                lambda r: mgpc(r.to(f32)).to(r.dtype),
+                                self.cg_tol, self.cg_max, stall_guard=0.0)
+                        else:
+                            w, cg_its = _cg(S, rhs, 1.0 / diagS,
+                                            self.cg_tol, self.cg_max,
+                                            stall_guard=0.0)
                 else:
-                    w, cg_its = _cg(S, rhs, 1.0 / diagS, self.cg_tol,
-                                    self.cg_max, stall_guard=0.0)
-            else:
-                tol_fix = max(self.cg_tol, 2e-6)
-                if self.cg_forcing == "ew":
-                    # Eisenstat-Walker choice 2 with the lower safeguard
-                    # 0.1*stop/|F_k|, forced tight in the endgame
-                    ratio = nrm_in_h / max(nrm_prev_h, 1e-300)
-                    eta = min(max(max(0.9 * ratio * ratio,
-                                      0.1 * stop_h / max(nrm_in_h, 1e-300)),
-                                  1e-9), 1e-2)
-                    if nrm_in_h < 100.0 * stop_h:
-                        eta = 1e-9
-                    tol32 = float(max(np.float32(tol_fix), np.float32(eta)))
-                else:
-                    eta = None
-                    tol32 = float(np.float32(tol_fix))
-                solve32 = self._mixed_solver(free, m2d, diagS, alpha, tol32)
-                w, cg_its = solve32(rhs)
-                rhsn2 = torch.dot(rhs, rhs)
-                # refinement target: fixed ~1e-9 relative (f32 noise
-                # floor), or the EW forcing eta
-                rthresh = ((eta * eta) * rhsn2 if eta is not None
-                           else 1e-18 * rhsn2)
-                for _ in range(2):
-                    r = torch.where(free, rhs - S(w), 0.0)
-                    rn2 = torch.dot(r, r)
-                    if bool(rn2 > rthresh):     # one read per decision
-                        e, its2 = solve32(r)
-                        w = w + e
-                        cg_its = cg_its + its2
-            du = torch.where(free, w, du_a)
-            # back-substitute dpsi from the first (linear) Newton row
-            dpsi = torch.where(
-                inner, -(g_u + alpha * self._spmv(A, du)) / M_L, 0.0)
-            u = u + du
-            psi = torch.clamp_max(psi + dpsi, PSI_TOP)
-            g_u, g_p = self.residual(u, psi, psi_k, alpha)
-            nrm = torch.sqrt(torch.dot(g_u, g_u) + torch.dot(g_p, g_p))
-            # keep the best iterate: Newton never returns a worse state
-            bu, bp, bn = best
-            improved = nrm < bn
-            best = (torch.where(improved, u, bu),
-                    torch.where(improved, psi, bp), torch.minimum(nrm, bn))
-            it += 1
-            cg_total = cg_total + cg_its
-            nrm_prev_h = nrm_in_h
-            nrm_h = float(nrm)                  # one read per Newton step
+                    tol_fix = max(self.cg_tol, 2e-6)
+                    if self.cg_forcing == "ew":
+                        # Eisenstat-Walker choice 2 with the lower safeguard
+                        # 0.1*stop/|F_k|, forced tight in the endgame
+                        ratio = nrm_in_h / max(nrm_prev_h, 1e-300)
+                        eta = min(max(max(0.9 * ratio * ratio,
+                                          0.1 * stop_h
+                                          / max(nrm_in_h, 1e-300)),
+                                      1e-9), 1e-2)
+                        if nrm_in_h < 100.0 * stop_h:
+                            eta = 1e-9
+                        tol32 = float(max(np.float32(tol_fix),
+                                          np.float32(eta)))
+                    else:
+                        eta = None
+                        tol32 = float(np.float32(tol_fix))
+                    solve32 = self._mixed_solver(free, m2d, diagS, alpha,
+                                                 tol32)
+                    with span("p1.inner_solve"):
+                        w, cg_its = solve32(rhs)
+                    rhsn2 = torch.dot(rhs, rhs)
+                    # refinement target: fixed ~1e-9 relative (f32 noise
+                    # floor), or the EW forcing eta
+                    rthresh = ((eta * eta) * rhsn2 if eta is not None
+                               else 1e-18 * rhsn2)
+                    for _ in range(2):
+                        r = torch.where(free, rhs - S(w), 0.0)
+                        rn2 = torch.dot(r, r)
+                        count("host_reads")         # one per decision
+                        if bool(rn2 > rthresh):
+                            with span("p1.inner_solve"):
+                                e, its2 = solve32(r)
+                            w = w + e
+                            cg_its = cg_its + its2
+                du = torch.where(free, w, du_a)
+                # back-substitute dpsi from the first (linear) Newton row
+                dpsi = torch.where(
+                    inner, -(g_u + alpha * self._spmv(A, du)) / M_L, 0.0)
+                u = u + du
+                psi = torch.clamp_max(psi + dpsi, PSI_TOP)
+                g_u, g_p = self.residual(u, psi, psi_k, alpha)
+                nrm = torch.sqrt(torch.dot(g_u, g_u) + torch.dot(g_p, g_p))
+                # keep the best iterate: Newton never returns a worse state
+                bu, bp, bn = best
+                improved = nrm < bn
+                best = (torch.where(improved, u, bu),
+                        torch.where(improved, psi, bp), torch.minimum(nrm, bn))
+                it += 1
+                cg_total = cg_total + cg_its
+                nrm_prev_h = nrm_in_h
+                count("host_reads")                 # one per Newton step
+                nrm_h = float(nrm)
         u, psi, _ = best
         inc = torch.linalg.norm(u - u_prev)
-        return u, psi, it, int(cg_total), float(inc)
+        if torch.is_tensor(cg_total):           # the f64 branches' counts
+            count("host_reads")
+            cg_total = int(cg_total)
+        count("host_reads")
+        return u, psi, it, cg_total, float(inc)
 
     # ------------------------------------------------------ outer loop
     def alpha_schedule(self, max_outer: int = 100) -> np.ndarray:
@@ -506,42 +523,47 @@ class P1ObstacleSolver:
     def _lvpp(self, max_outer: int, verbose: bool, inclusive: bool):
         """The outer LVPP loop over the precomputed alpha schedule. Stops
         after the outer step whose increment is below outer_tol (at or
-        below it when inclusive). Returns (u, psi, outer steps, Newton
-        total, CG total, newton_per_outer, increments)."""
-        N, dt, dev = self.N, self.dtype, self.device
-        u = torch.zeros(N, dtype=dt, device=dev)
-        psi = torch.ones(N, dtype=dt, device=dev)
-        psi_k = torch.zeros(N, dtype=dt, device=dev)
-        u_prev = torch.zeros(N, dtype=dt, device=dev)
-        per_outer: List[int] = []
-        increments: List[float] = []
-        total = 0
-        cg_total = 0
-        k_done = 0
-        for k, alpha in enumerate(self.alpha_schedule(max_outer)):
-            alpha = float(alpha)
-            u, psi, nits, cg_its, inc = self._newton(u, psi, psi_k, u_prev,
-                                                     alpha)
-            total += nits
-            cg_total += cg_its
-            per_outer.append(nits)
-            psi_k = psi
-            increments.append(inc)
-            k_done = k + 1
-            if verbose:
-                print(f"outer {k + 1} alpha={alpha:.4g} newton={nits} "
-                      f"cg={cg_its} inc={inc:.3e}", flush=True)
-            if inc < self.outer_tol or (inclusive and inc == self.outer_tol):
-                break
-            u_prev = u
-        return u, psi, k_done, total, cg_total, per_outer, increments
+        below it when inclusive). Returns (u, psi on the host, outer steps,
+        Newton total, CG total, newton_per_outer, increments), all of it
+        inside the root span `p1.solve`."""
+        with span("p1.solve"):
+            N, dt, dev = self.N, self.dtype, self.device
+            u = torch.zeros(N, dtype=dt, device=dev)
+            psi = torch.ones(N, dtype=dt, device=dev)
+            psi_k = torch.zeros(N, dtype=dt, device=dev)
+            u_prev = torch.zeros(N, dtype=dt, device=dev)
+            per_outer: List[int] = []
+            increments: List[float] = []
+            total = 0
+            cg_total = 0
+            k_done = 0
+            for k, alpha in enumerate(self.alpha_schedule(max_outer)):
+                alpha = float(alpha)
+                u, psi, nits, cg_its, inc = self._newton(u, psi, psi_k,
+                                                         u_prev, alpha)
+                total += nits
+                cg_total += cg_its
+                per_outer.append(nits)
+                psi_k = psi
+                increments.append(inc)
+                k_done = k + 1
+                if verbose:
+                    print(f"outer {k + 1} alpha={alpha:.4g} newton={nits} "
+                          f"cg={cg_its} inc={inc:.3e}", flush=True)
+                if inc < self.outer_tol or (inclusive
+                                            and inc == self.outer_tol):
+                    break
+                u_prev = u
+            count("host_reads", 2)              # the answer, u and psi
+            u_h, psi_h = u.cpu().numpy(), psi.cpu().numpy()
+        return u_h, psi_h, k_done, total, cg_total, per_outer, increments
 
     def solve(self, max_outer: int = 100, verbose: bool = False
               ) -> P1ObstacleResult:
         u, psi, k_done, total, cg_total, per_outer, increments = self._lvpp(
             max_outer, verbose, inclusive=False)
         return P1ObstacleResult(
-            u=u.cpu().numpy(), psi=psi.cpu().numpy(),
+            u=u, psi=psi,
             outer_iterations=k_done, newton_its=total,
             newton_per_outer=per_outer, increments=increments,
             converged=bool(increments) and increments[-1] < self.outer_tol,
@@ -558,7 +580,7 @@ class P1ObstacleSolver:
             max_outer, False, inclusive=True)
         inc = increments[-1] if increments else float("inf")
         return P1ObstacleResult(
-            u=u.cpu().numpy(), psi=psi.cpu().numpy(),
+            u=u, psi=psi,
             outer_iterations=k_done, newton_its=total, newton_per_outer=[],
             increments=[inc], converged=inc < self.outer_tol,
             cg_its_total=cg_total)

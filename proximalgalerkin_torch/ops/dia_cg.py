@@ -64,6 +64,7 @@ from typing import Dict, NamedTuple, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..core.logging import count
 from ._nvcc import require_cuda, stream_of
 from .dia_spmv import (check_dtype, check_operator, check_vector,
                        dia_spmv_reference, lib, offsets_arg)
@@ -179,7 +180,7 @@ def fused_dia_cg_reference(offsets: Sequence[int], data: torch.Tensor,
         stalled = (it - ib > stall_window) & (rrb < guard_stop)
         return (ok > 0.5) & ~stalled & (it < maxiter) & (rr > stop)
 
-    while bool(live_of(it, ib, rrb, ok, rr)):      # one read per chunk
+    while True:
         for _ in range(chunk):
             live = live_of(it, ib, rrb, ok, rr)
             pn, Ap, part = k1_reference(offs, data, r, p, beta)
@@ -199,7 +200,12 @@ def fused_dia_cg_reference(offsets: Sequence[int], data: torch.Tensor,
             rr = torch.where(live, rr_new, rr)
             ok = torch.where(live, good.to(dt), ok)
             it = torch.where(live, it + 1.0, it)
-    return xb, int(it)
+        # the one host read of the chunk, as the kernels'
+        count("host_reads")
+        its, live = torch.stack([it, live_of(it, ib, rrb, ok, rr).to(dt)]
+                                ).tolist()
+        if live < 0.5:
+            return xb, int(its)
 
 
 # ------------------------------------------- the kernel's host geometry
@@ -451,6 +457,7 @@ def _kernel_solve(offs, data, b, tol, maxiter, stall_guard, stall_window,
         first = False
         # the one host read of the chunk: iterations and the loop condition
         # and the x buffer of the best iterate
+        count("host_reads")
         it, live, best = ws.sc[[_SC["IT"], _SC["LIVE"], _SC["BEST"]]].tolist()
         if live < 0.5:
             return ws.xs[int(best)].clone(), int(it)

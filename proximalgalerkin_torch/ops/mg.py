@@ -27,6 +27,8 @@ from typing import Callable, List
 import numpy as np
 import torch
 
+from ..core.logging import count
+
 # diagonal weight standing in for a pinned (identity) row; large enough
 # that the coarse-grid correction and smoother leave those dofs alone,
 # small enough that f32 products with O(1e14) Schur diagonals stay finite
@@ -192,7 +194,10 @@ def pcg(matvec: Callable, b: torch.Tensor, precond: Callable, tol,
         stalled = (i - ib > stall_window) & (rrb < guard_stop)
         return ok & ~stalled & (i < maxiter) & (rr > stop)
 
-    while bool(live_of(i, ok, rr, rrb, ib)):
+    while True:
+        count("host_reads")
+        if not bool(live_of(i, ok, rr, rrb, ib)):
+            return xb, i
         for _ in range(chunk):
             live = live_of(i, ok, rr, rrb, ib)
             Ap = matvec(p)
@@ -214,4 +219,3 @@ def pcg(matvec: Callable, b: torch.Tensor, precond: Callable, tol,
             ok = torch.where(live, good, ok)
             i = torch.where(live, i + 1, i)
             rz = rz_new
-    return xb, i

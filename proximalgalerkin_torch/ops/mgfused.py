@@ -44,6 +44,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..core.logging import count
 from . import _nvcc
 from .mg import _levels_for, k5_apply, prolong, restrict, vcycle
 
@@ -217,7 +218,7 @@ def fused_mg_pcg_reference(b, B, C, whier: Sequence[torch.Tensor],
         stalled = (it - ib > STALL_WINDOW) & (rrb < guard_stop)
         return (ok > 0.5) & ~stalled & (it < maxiter) & (rr > stop)
 
-    while bool(live_of(it, ib, rrb, ok, rr)):      # one read per chunk
+    while True:
         for _ in range(chunk):
             live = live_of(it, ib, rrb, ok, rr)
             Ap = matvec(p)
@@ -239,7 +240,12 @@ def fused_mg_pcg_reference(b, B, C, whier: Sequence[torch.Tensor],
             ok = torch.where(live, good.to(f32), ok)
             it = torch.where(live, it + 1.0, it)
             rz = rz_new
-    return xb, int(it)
+        # the one host read of the chunk, as the kernel's
+        count("host_reads")
+        its, live = torch.stack([it, live_of(it, ib, rrb, ok, rr).to(f32)]
+                                ).tolist()
+        if live < 0.5:
+            return xb, int(its)
 
 
 # ------------------------------------------------------------- kernel
@@ -399,6 +405,7 @@ def _kernel_solve(b, B, C, whier, alpha_s, tol, maxiter, chunk):
         solve.launches += 1
         first = False
         # the one host read of the chunk: iterations and the loop condition
+        count("host_reads")
         it, live = ws.sc[[_SC_IT, _SC_LIVE]].tolist()
         if live < 0.5:
             return ws.XB.clone().view(m, m), int(it)

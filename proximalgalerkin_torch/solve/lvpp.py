@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..core.config import SolverOptions
-from ..core.logging import PhaseTimer, rank_print
+from ..core.logging import PhaseTimer, count, rank_print, span
 from .newton import NewtonResult, NewtonSolver
 from .nonlinear import NonlinearProblem
 
@@ -198,7 +198,12 @@ class LVPPSolver:
             observables=result.observables).save(self.checkpoint_path)
 
     def solve(self, x0, resume=None) -> LVPPResult:
-        """Solve from x0, or resume from an LVPPCheckpoint."""
+        """Solve from x0, or resume from an LVPPCheckpoint (the root span
+        `lvpp.solve`, one span `lvpp.step` an outer iteration)."""
+        with span("lvpp.solve"):
+            return self._solve(x0, resume)
+
+    def _solve(self, x0, resume) -> LVPPResult:
         prob = self.problem
         x_k = prob.set_bc(x0)
         result = LVPPResult(x=x_k, iterations=0, converged=False,
@@ -222,74 +227,81 @@ class LVPPSolver:
             result.iterations = k
             result.x = x_k
         while k < self.max_iterations:
-            a = self.alpha.value(k) * alpha_scale
-            prob.update(consts={"alpha": torch.tensor(
-                a, dtype=prob.form.dtype, device=prob.device)},
-                        coeffs=self.prev_coeffs(x_k))
-            if self.verbose:
-                rank_print(f"OUTER LOOP {k + 1} alpha: {a}")
-
-            res: NewtonResult = self.newton.solve(x_k)
-            solver_did_work = res.iterations > 0 or res.reason.converged
-
-            if not res.converged or (self.adaptive and res.iterations == 0):
-                # failure path (fracture_dolfinx.py:243-264): halve alpha,
-                # roll back to the last committed iterate, retry
-                if not self.adaptive:
-                    if self.verbose:
-                        rank_print(f"  Newton diverged ({res.reason.name}); "
-                                   "aborting outer loop")
-                    result.x = x_k
-                    return result
-                nfail += 1
-                if nfail > self.nfail_max:
-                    rank_print("  retry budget exhausted")
-                    result.x = x_k
-                    return result
-                alpha_scale *= 0.5
+            with span("lvpp.step"):
+                a = self.alpha.value(k) * alpha_scale
+                prob.update(consts={"alpha": torch.tensor(
+                    a, dtype=prob.form.dtype, device=prob.device)},
+                            coeffs=self.prev_coeffs(x_k))
                 if self.verbose:
-                    rank_print(f"  solve failed ({res.reason.name}); retrying "
-                               f"with alpha scale {alpha_scale}")
-                continue
+                    rank_print(f"OUTER LOOP {k + 1} alpha: {a}")
 
-            x = res.x
-            # a distributed problem's norm reduces over every subdomain
-            norm = getattr(prob, "norm", torch.linalg.norm)
-            inc = (float(self.increment(x, x_k)) if self.increment is not None
-                   else float(norm(x - x_k)))
-            if self.verbose:
-                rank_print(f"Newton steps: {res.iterations}   "
-                           f"Converged: {int(res.reason)}")
-                rank_print(f"Increment size: {inc}")
+                res: NewtonResult = self.newton.solve(x_k)
+                solver_did_work = res.iterations > 0 or res.reason.converged
 
-            result.newton_steps.append(res.iterations)
-            result.step_sizes.append(a)
-            result.increments.append(inc)
-            for name, fn in self.observables.items():
-                result.observables[name].append(float(fn(x, x_k, a)))
+                if not res.converged or (self.adaptive
+                                         and res.iterations == 0):
+                    # failure path (fracture_dolfinx.py:243-264): halve
+                    # alpha, roll back to the last committed iterate, retry
+                    if not self.adaptive:
+                        if self.verbose:
+                            rank_print(f"  Newton diverged "
+                                       f"({res.reason.name}); "
+                                       "aborting outer loop")
+                        result.x = x_k
+                        return result
+                    nfail += 1
+                    if nfail > self.nfail_max:
+                        rank_print("  retry budget exhausted")
+                        result.x = x_k
+                        return result
+                    alpha_scale *= 0.5
+                    if self.verbose:
+                        rank_print(f"  solve failed ({res.reason.name}); "
+                                   f"retrying with alpha scale {alpha_scale}")
+                    continue
 
-            k += 1
-            result.iterations = k
-            # commit (only reached when converged)
-            x_k = x
-            result.x = x_k
+                x = res.x
+                # a distributed problem's norm reduces over every subdomain
+                norm = getattr(prob, "norm", torch.linalg.norm)
+                count("host_reads")
+                inc = (float(self.increment(x, x_k))
+                       if self.increment is not None
+                       else float(norm(x - x_k)))
+                if self.verbose:
+                    rank_print(f"Newton steps: {res.iterations}   "
+                               f"Converged: {int(res.reason)}")
+                    rank_print(f"Increment size: {inc}")
 
-            if inc < self.tol:
-                result.converged = True
-                break
+                result.newton_steps.append(res.iterations)
+                result.step_sizes.append(a)
+                result.increments.append(inc)
+                for name, fn in self.observables.items():
+                    count("host_reads")
+                    result.observables[name].append(float(fn(x, x_k, a)))
 
-            if self.adaptive:
-                if res.iterations <= self.grow_below_its:
-                    alpha_scale *= self.adaptive_grow
-                elif res.iterations >= self.shrink_above_its:
-                    alpha_scale /= self.adaptive_shrink
+                k += 1
+                result.iterations = k
+                # commit (only reached when converged)
+                x_k = x
+                result.x = x_k
 
-            # checkpoint AFTER the adaptive update: the saved alpha_scale
-            # must be exactly what iteration k+1 will use, or a resumed
-            # run walks a different alpha trajectory than the
-            # uninterrupted one (caught by
-            # test_checkpoint_resume_matches_uninterrupted)
-            if self.checkpoint_path and k % self.checkpoint_every == 0:
-                self._save_checkpoint(x, x_k, k, alpha_scale, nfail, result)
+                if inc < self.tol:
+                    result.converged = True
+                    break
+
+                if self.adaptive:
+                    if res.iterations <= self.grow_below_its:
+                        alpha_scale *= self.adaptive_grow
+                    elif res.iterations >= self.shrink_above_its:
+                        alpha_scale /= self.adaptive_shrink
+
+                # checkpoint AFTER the adaptive update: the saved alpha_scale
+                # must be exactly what iteration k+1 will use, or a resumed
+                # run walks a different alpha trajectory than the
+                # uninterrupted one (caught by
+                # test_checkpoint_resume_matches_uninterrupted)
+                if self.checkpoint_path and k % self.checkpoint_every == 0:
+                    self._save_checkpoint(x, x_k, k, alpha_scale, nfail,
+                                          result)
 
         return result

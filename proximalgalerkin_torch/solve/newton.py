@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from ..core.config import SolverOptions
-from ..core.logging import Monitor, PhaseTimer, rank_print
+from ..core.logging import Monitor, PhaseTimer, count, rank_print, span
 from ..core.reasons import ConvergedReason, NotConvergedError
 from ..la.direct import LUFactorization
 from .nonlinear import NonlinearProblem
@@ -68,6 +68,7 @@ class NewtonSolver:
 
     def _to_host(self, t: torch.Tensor) -> np.ndarray:
         with self.timer.phase("host_transfer"):
+            count("host_reads")
             return t.cpu().numpy()
 
     def _to_device(self, a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
@@ -115,6 +116,7 @@ class NewtonSolver:
                 return step(x, F, self.problem.coeffs, self.problem.consts,
                             rtol_k, atol_k, max_it_k)
             Av = self.problem.jacobian_action(x)
+            count("host_reads")
             fnorm = float(torch.linalg.norm(F))
             monitor = bool(self.options.opt("ksp_monitor", False))
             import time as _time
@@ -123,6 +125,7 @@ class NewtonSolver:
                 t0 = _time.time()
                 dx = step(x, F, self.problem.coeffs, self.problem.consts,
                           rtol_k, atol_k, chunk, dx0=dx)
+                count("host_reads")
                 rres = float(torch.linalg.norm(Av(dx) + F))
                 if monitor:
                     rank_print(f"      ksp chunk {ci}: relres "
@@ -161,6 +164,7 @@ class NewtonSolver:
         biv = str(opts.opt("pc_factor_blockinv", "ns"))
         lag = int(opts.opt("pc_factor_lag", 0) or 0)
         b = -F
+        count("host_reads")
         bnorm = float(torch.linalg.norm(b))
         tol = max(float(opts.opt("ksp_rtol")) * bnorm,
                   float(opts.opt("ksp_atol")))
@@ -182,7 +186,13 @@ class NewtonSolver:
                     refine_max, on_pass=on_pass if monitor else None)
             # the reference's host loop does not test the residual left by
             # its last allowed correction
-            return dx, fresh or (bool(reached) and int(p) < refine_max)
+            if fresh:
+                return dx, True
+            count("host_reads")
+            if not bool(reached):
+                return dx, False
+            count("host_reads")
+            return dx, int(p) < refine_max
 
         fact = getattr(self, "_lagged_bt", None) if lag else None
         if fact is not None:
@@ -338,6 +348,7 @@ class NewtonSolver:
 
         def fsq(t):
             r = prob.residual(x + t * dx)
+            count("host_reads")
             v = float(torch.dot(r, r))
             return v if np.isfinite(v) else np.inf
 
@@ -375,6 +386,7 @@ class NewtonSolver:
             # initslope = <J dx, F> (linesearchbt.c computes the true
             # directional derivative; = -||F||^2 only for exact solves)
             Jdx = self.problem.jacobian_action(x)(dx)
+            count("host_reads")
             initslope = float(torch.dot(Jdx, prob.residual(x)))
             if not np.isfinite(initslope) or initslope >= 0.0:
                 initslope = -fnorm * fnorm
@@ -487,6 +499,7 @@ class NewtonSolver:
 
         def read(*ts):
             # one batched read of the scalars of a call
+            count("host_reads")
             return torch.stack([t.to(torch.float64) for t in ts]).tolist()
 
         with self.timer.phase("newton_fused"):
@@ -516,10 +529,15 @@ class NewtonSolver:
         return NewtonResult(x, reason, it, fn, [f0, fn])
 
     def solve(self, x0) -> NewtonResult:
+        """One Newton solve from x0, inside the span `newton.solve`."""
+        with span("newton.solve"):
+            if self.options.opt("snes_fused"):
+                return self._solve_fused(x0)
+            return self._solve_steps(x0)
+
+    def _solve_steps(self, x0) -> NewtonResult:
         opts = self.options
         prob = self.problem
-        if opts.opt("snes_fused"):
-            return self._solve_fused(x0)
         rtol = float(opts.opt("snes_rtol"))
         atol = float(opts.opt("snes_atol"))
         stol = float(opts.opt("snes_stol"))
@@ -531,6 +549,7 @@ class NewtonSolver:
         x = prob.set_bc(x0)
         with self.timer.phase("residual"):
             F = prob.residual(x)
+        count("host_reads")
         fnorm = float(torch.linalg.norm(F))
         f0 = fnorm
         monitor(0, fnorm)
@@ -555,6 +574,7 @@ class NewtonSolver:
                     x_new = x + damping * dx
                 with self.timer.phase("residual"):
                     F_new = prob.residual(x_new)
+                count("host_reads")
                 ok, fnorm_new, snorm, xnorm = torch.stack([
                     finite.to(F.dtype), torch.linalg.norm(F_new),
                     torch.linalg.norm(dx), torch.linalg.norm(x_new)]).tolist()
@@ -562,6 +582,7 @@ class NewtonSolver:
                     reason = ConvergedReason.DIVERGED_LINEAR_SOLVE
                     break
             else:
+                count("host_reads")
                 if not bool(finite):
                     reason = ConvergedReason.DIVERGED_LINEAR_SOLVE
                     break
@@ -572,6 +593,7 @@ class NewtonSolver:
                     break
                 with self.timer.phase("residual"):
                     F_new = prob.residual(x_new)
+                count("host_reads")
                 fnorm_new, snorm, xnorm = torch.stack([
                     torch.linalg.norm(F_new), torch.linalg.norm(dx),
                     torch.linalg.norm(x_new)]).tolist()

@@ -31,6 +31,7 @@ import torch
 from torch.func import jvp
 
 from ..assembly.assemble import VolumeForm
+from ..core.logging import count
 from ..la.loop import while_loop
 from ..spaces.space import DirichletBC
 
@@ -805,6 +806,7 @@ class NonlinearProblem:
             with phase("assembly"):
                 Ae = self.form.element_matrices(x, self.coeffs, self.consts)
             with phase("host_transfer"):
+                count("host_reads")
                 Ae = Ae.cpu().numpy()
             with phase("csr"):
                 data = scatter_add(Ae.reshape(-1).astype(np.float64),

@@ -1,4 +1,4 @@
 from .checkpoint import LVPPCheckpoint
-from .profiling import annotate, device_trace
+from .profiling import device_trace
 
-__all__ = ["LVPPCheckpoint", "annotate", "device_trace"]
+__all__ = ["LVPPCheckpoint", "device_trace"]

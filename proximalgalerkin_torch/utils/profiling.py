@@ -1,11 +1,13 @@
-"""Profiling hooks: per-phase wall-clock plus optional torch.profiler
-traces, the port of the reference package's utils/profiling.py.
+"""The port's trace exporter, the counterpart of the reference package's
+utils/profiling.py.
 
 The reference has no in-repo tracing (SURVEY.md §5 — only PETSc monitor
-options and Julia @elapsed); the rebuild adds phase timers
-(core/logging.PhaseTimer, threaded through NewtonSolver) and this
-device-trace context, which writes a Chrome trace (TensorBoard's
-`*.pt.trace.json`) of the host and, on a CUDA device, of its kernels."""
+options and Julia @elapsed). The port's spans and counters live in
+core/logging (`span`, `count`, `tracing`, `recorded`; `PhaseTimer` is a
+view of them). This device-trace context writes a Chrome trace
+(TensorBoard's `*.pt.trace.json`) of the host and, on a CUDA device, of
+its kernels; while it records, the program's spans are on and appear in
+it as the ranges `pg.<name>`."""
 
 from __future__ import annotations
 
@@ -27,7 +29,8 @@ def device_trace(logdir: str = "pgtorch_trace", enabled: bool = True
             solver.solve()
 
     Yields the profiler (its key_averages() are read after the context),
-    or None when not enabled."""
+    or None when not enabled. Mark a region of one's own with
+    core.logging.span(name), which the trace shows as `pg.<name>`."""
     if not enabled:
         yield None
         return
@@ -41,9 +44,3 @@ def device_trace(logdir: str = "pgtorch_trace", enabled: bool = True
     with prof:
         yield prof
 
-
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """Named region in the profile (record_function)."""
-    with torch.profiler.record_function(name):
-        yield

@@ -382,17 +382,18 @@ def test_contact_on_card_matches_cpu(cuda, name):
 
 def test_signorini_trace_on_card(cuda, tmp_path):
     """One Signorini Newton step inside utils.profiling.device_trace on
-    the card: the trace holds the annotate region and CUDA kernels."""
+    the card: the trace holds the span's range and CUDA kernels."""
     import json
+    from proximalgalerkin_torch.core.logging import span
     from proximalgalerkin_torch.models.signorini import solve_signorini
-    from proximalgalerkin_torch.utils.profiling import annotate, device_trace
+    from proximalgalerkin_torch.utils.profiling import device_trace
     with device_trace(str(tmp_path)):
-        with annotate("signorini_newton_step"):
+        with span("signorini_newton_step"):
             solve_signorini(res=0.06, verbose=False, max_iterations=1,
                             newton_max_its=1, device=cuda)
     (f,) = tmp_path.glob("*.pt.trace.json")
     events = json.loads(f.read_text())["traceEvents"]
-    assert any(e.get("name") == "signorini_newton_step" for e in events)
+    assert any(e.get("name") == "pg.signorini_newton_step" for e in events)
     assert any(e.get("cat") == "kernel" for e in events)
 
 
@@ -407,10 +408,10 @@ def test_fd_obstacle_on_card_matches_cpu(cuda):
 def test_device_loops_read_the_host_once_per_chunk(cuda):
     """On the card the Krylov loop reads the host once per 64-iteration
     chunk, the f64 refinement once per pass, the fused Newton loop once
-    per Newton step (counted by la/loop.while_loop)."""
+    per Newton step (the host_reads counter of la/loop.while_loop)."""
     import math
     from proximalgalerkin_torch.la import krylov
-    from proximalgalerkin_torch.la.loop import while_loop
+    from proximalgalerkin_torch.core.logging import counter
     from proximalgalerkin_torch.models.obstacle import (coefficients_on,
                                                         setup_obstacle_problem)
     from proximalgalerkin_torch.solve.nonlinear import _refined
@@ -419,10 +420,10 @@ def test_device_loops_read_the_host_once_per_chunk(cuda):
     A = torch.tensor(Q @ np.diag(np.linspace(1, 400, 300)) @ Q.T,
                      device=cuda)
     b = torch.tensor(rng.standard_normal(300), device=cuda)
-    before = while_loop.host_reads
+    before = counter("host_reads")
     x, _, its = krylov.minres_info(lambda v: A @ v, b, tol=1e-12,
                                    maxiter=2000)
-    reads = while_loop.host_reads - before
+    reads = counter("host_reads") - before
     assert int(its) > 64 and reads == math.ceil(int(its) / 64)
     x1, _, its1 = krylov.minres_info(lambda v: A @ v, b, tol=1e-12,
                                      maxiter=2000, chunk=1)
@@ -435,9 +436,9 @@ def test_device_loops_read_the_host_once_per_chunk(cuda):
         return krylov.cg(lambda v: A.float() @ v, r.float(), tol=1e-5,
                          maxiter=2000).double()
 
-    before = while_loop.host_reads
+    before = counter("host_reads")
     dx = _refined(solve_lo, lambda v: A @ v, b, 1e-12, 0.0, 30)
-    reads = while_loop.host_reads - before
+    reads = counter("host_reads") - before
     assert float(torch.linalg.norm(A @ dx - b) / torch.linalg.norm(b)) \
         <= 1e-10
     # the passes' own reads, plus one cg chunk or more in each of the
@@ -456,17 +457,17 @@ def test_device_loops_read_the_host_once_per_chunk(cuda):
     real = krylov.cg
 
     def cg(*a, **k):
-        r0 = while_loop.host_reads
+        r0 = counter("host_reads")
         out = real(*a, **k)
-        counted.append(while_loop.host_reads - r0)
+        counted.append(counter("host_reads") - r0)
         return out
 
     krylov.cg = cg
     try:
-        before = while_loop.host_reads
+        before = counter("host_reads")
         x, it, fn, f0, ok, sconv = fused(p.set_bc(prob.space.zeros()),
                                          rtol=1e-8, ksp_rtol=1e-12)
-        reads = while_loop.host_reads - before
+        reads = counter("host_reads") - before
     finally:
         krylov.cg = real
     assert bool(ok) and int(it) == len(counted) > 1
@@ -522,3 +523,32 @@ def test_distributed_graph_replay_is_the_eager_action(cuda):
     eager = dp._jac_action(x, cv, {}, consts, dp.bc_mask)
     assert _rel(graphed(v), eager(v)) <= 1e-14
     assert _rel(graphed(2.0 * v), eager(2.0 * v)) <= 1e-14
+
+
+def test_recorder_on_under_a_card_only_profile(cuda):
+    """The benchmark's first traced solve records the device alone
+    (profile(activities=[CUDA])): the recorder is on there, each span
+    synchronises the card at its edges and holds its device work, and a
+    fast-path solve records its root, Newton steps and inner solves."""
+    from torch.profiler import ProfilerActivity, profile
+    from proximalgalerkin_torch.core import logging as pglog
+    mesh = rectangle_mesh(32, 32, p0=(-1.0, -1.0), p1=(1.0, 1.0))
+    solver = P1ObstacleSolver(mesh, device=cuda, alpha_cap=1e2,
+                              outer_tol=1e-8, mixed_precision=True, pc="mg")
+    a = torch.randn(2048, 2048, device=cuda)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        assert pglog.RECORDER.on()
+        with pglog.span("gpu.matmul"):
+            for _ in range(20):
+                a = a @ a / 2048.0
+        r = solver.solve()
+    host_only = [g for g in pglog.recorded() if g[0].name == "gpu.matmul"]
+    (mm,) = host_only[-1]
+    # the span's end waited for the 20 products it enqueued
+    assert (mm.end_ns - mm.start_ns) * 1e-9 > 20 * 2 * 2048 ** 3 / 1e15
+    group = [g for g in pglog.recorded() if g[0].name == "p1.solve"][-1]
+    names = [s.name for s in group]
+    assert r.converged and names.count("p1.newton_step") == r.newton_its
+    assert names.count("p1.inner_solve") >= r.newton_its
+    assert sum(s.counts.get("host_reads", 0) for s in group) > 0

@@ -15,7 +15,7 @@ import jax.numpy as jnp
 
 from proximalgalerkin_tpu.la import krylov as ref
 from proximalgalerkin_torch.la import krylov
-from proximalgalerkin_torch.la.loop import while_loop
+from proximalgalerkin_torch.core.logging import counter
 
 f64 = torch.float64
 
@@ -128,10 +128,10 @@ def test_chunked_loop_equals_unchunked(chunk):
     At = torch.tensor(A)
     x1, r1, i1 = krylov.minres_info(lambda v: At @ v, torch.tensor(b),
                                     tol=1e-12, maxiter=1000, chunk=1)
-    before = while_loop.host_reads
+    before = counter("host_reads")
     x, r, i = krylov.minres_info(lambda v: At @ v, torch.tensor(b),
                                  tol=1e-12, maxiter=1000, chunk=chunk)
-    reads = while_loop.host_reads - before
+    reads = counter("host_reads") - before
     assert int(i) == int(i1) and torch.equal(x, x1) and torch.equal(r, r1)
     expected = int(i) + 1 if chunk == 1 else math.ceil(int(i) / chunk)
     assert reads == expected

@@ -11,7 +11,7 @@ import torch
 import jax.numpy as jnp
 
 from proximalgalerkin_tpu.models import obstacle_fd as ref
-from proximalgalerkin_torch.la.loop import while_loop
+from proximalgalerkin_torch.core.logging import counter
 from proximalgalerkin_torch.models import obstacle_fd
 from proximalgalerkin_torch.models.obstacle_fd import (
     fd_obstacle_solve, fd_resolution_sweep)
@@ -31,9 +31,9 @@ def _one_torch_thread():
 @pytest.mark.parametrize("N", [17, 33])
 def test_matches_reference(N):
     r_ref = ref.fd_obstacle_solve(N)
-    before = while_loop.host_reads
+    before = counter("host_reads")
     r = fd_obstacle_solve(N, device="cpu")
-    reads = while_loop.host_reads - before
+    reads = counter("host_reads") - before
     assert r.newton_per_outer == r_ref.newton_per_outer
     assert r.outer_iterations == r_ref.outer_iterations
     assert np.abs(r.u - r_ref.u).max() <= 1e-10

@@ -1,14 +1,15 @@
 """The port's profiling hooks (utils/profiling.py) on the CPU: a
 device_trace context writes a Chrome trace into its log directory, with
-the annotate regions and the ops run inside them; disabled, it writes
-nothing."""
+the program's spans (core/logging.span, as `pg.<name>`) and the ops run
+inside them; disabled, it writes nothing."""
 
 import json
 
 import pytest
 import torch
 
-from proximalgalerkin_torch.utils import annotate, device_trace
+from proximalgalerkin_torch.core.logging import span
+from proximalgalerkin_torch.utils import device_trace
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -28,25 +29,25 @@ def _work():
 def test_trace_written_with_annotation(tmp_path):
     logdir = tmp_path / "trace"
     with device_trace(str(logdir)) as prof:
-        with annotate("signorini_newton_step"):
+        with span("signorini_newton_step"):
             _work()
     files = list(logdir.glob("*.pt.trace.json"))
     assert len(files) == 1
     events = json.loads(files[0].read_text())["traceEvents"]
     names = {e.get("name") for e in events}
-    assert "signorini_newton_step" in names
+    assert "pg.signorini_newton_step" in names
     assert any("mm" in str(n) for n in names)
-    region = [e for e in events if e.get("name") == "signorini_newton_step"
+    region = [e for e in events if e.get("name") == "pg.signorini_newton_step"
               and e.get("ph") == "X"]
     assert region and region[0]["dur"] > 0
-    assert any(k.key == "signorini_newton_step"
+    assert any(k.key == "pg.signorini_newton_step"
                for k in prof.key_averages())
 
 
 def test_trace_disabled_writes_nothing(tmp_path):
     logdir = tmp_path / "trace"
     with device_trace(str(logdir), enabled=False) as prof:
-        with annotate("region"):
+        with span("region"):
             _work()
     assert prof is None
     assert not logdir.exists()
