@@ -36,9 +36,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    sources, one nvcc for each, started together;
 3. the fused MG-PCG kernel against its plain PyTorch version on the card,
    at m = 1025 on a deep-contact Schur state made with numpy from a seed:
-   its pieces (matvec step, down and up legs of a level, one V-cycle), a
+   its pieces (matvec step, down and up legs of a level, one V-cycle, the
+   V-cycle bit for bit against its plain version split as planned), a
    whole solve with its time per iteration beside its bound and its
-   device time by kernel and idle share (torch.profiler), chunk-size
+   device time by kernel and idle share (torch.profiler), the bottom of
+   the V-cycle below level 1 (the cluster k_tail) a launch, chunk-size
    invariance (64/5/1, m = 257), a zero right-hand side, maxiter, and
    workspace reuse;
 4. the DIA SpMV kernel against its plain version: the 1024^2 P1 operator
@@ -199,8 +201,10 @@ With --ab PARENT (PARENT: an unpacked copy of another commit of the
 repository), the 1024^2 mixed + mg solve of PARENT's package and of this
 one run in turns (parent, this, this, parent), each in its own process,
 then the mixed + jacobi solve likewise; each line gives the solve's
-seconds, its time per CG iteration, its counts and a hash of u, and the
-jacobi solutions are held against the mg one.
+seconds, its time per CG iteration, its counts and a hash of u (and, for
+mg, the launches below level 1 of the V-cycle at m = 1025 with their
+device time, tail_chain), and the jacobi solutions are held against the
+mg one.
 """
 
 from __future__ import annotations
@@ -405,6 +409,48 @@ def print_breakdown(title: str, wall: float, busy: float, by_kernel: dict):
                   f"{1e3 * ms / n:8.2f} us each")
 
 
+def tail_chain(dev, m: int = 1025) -> dict:
+    """The bottom of the V-cycle below its first level in a solve at m (a
+    1025 state solves in 29 iterations): the launches a V-cycle between
+    the down leg and the up leg of level 1 (at m = 1025: the levels 257
+    ... 5, the cluster k_tail, or the grid legs of 257 and 129 around a
+    one-block k_tail) and their device time a V-cycle, and k_tail's time
+    a launch, from torch.profiler over the priming and live V-cycles (the
+    dead iterations after the solve's end are left out)."""
+    import re
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from proximalgalerkin_torch.ops import mgfused
+    alpha, b, B, C, ws = grids_on(dev, m, SEED)
+    mgfused.solve(b, B, C, ws, alpha, 1e-6, 500)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, its = mgfused.solve(b, B, C, ws, alpha, 1e-6, 500)
+        torch.cuda.synchronize()
+    kernels = sorted((e.time_range.start, e.time_range.end, k.group(0))
+                     for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and (k := re.search(r"\bk_\w+", e.name)))
+    cycles, inner = [], None
+    for t0, t1, name in kernels:
+        if name == "k_down0":
+            inner = []
+        elif name == "k_up0" and inner is not None:
+            cycles.append(inner[1:-1])
+            inner = None
+        elif inner is not None:
+            inner.append((name, t1 - t0))
+    cycles = cycles[:its + 1]
+    check(len(cycles) == its + 1 and its > 0,
+          f"the profiler saw {its + 1} V-cycles at m={m}")
+    tails = [us for c in cycles for name, us in c if name == "k_tail"]
+    return {"its": its, "launches": len(cycles[0]),
+            "chain_us": statistics.mean(sum(us for _, us in c)
+                                        for c in cycles),
+            "k_tail_us": statistics.mean(tails),
+            "kernels": [name for name, _ in cycles[0]]}
+
+
 def mg_iteration_bytes(m: int) -> int:
     """Bytes one MG-PCG iteration must move: B, C, x, r, p and every
     level's diagonal read once; x, r, p and xb written once (f32)."""
@@ -524,12 +570,16 @@ def phase_kernel(dev) -> dict:
                   mgfused.up_reference(f, ws[0], e, alpha))
     print(f"up leg      m={m} max rel diff {err:.3e} (bound 1e-5)")
     check(err <= 1e-5, "up leg")
-    ms, lt = mgfused.level_plan(m)
-    err = rel_max(mgfused.kernel_pc(b, B, ws, alpha),
-                  mgfused.pc_reference(b, B, ws, alpha))
-    print(f"V-cycle pc  m={m} levels {ms}, tail from level {lt} max rel "
-          f"diff {err:.3e} (bound 1e-5)")
+    ms, lt, nb = mgfused.level_plan(m)
+    z = mgfused.kernel_pc(b, B, ws, alpha)
+    err = rel_max(z, mgfused.pc_reference(b, B, ws, alpha))
+    same = bool(torch.equal(z, mgfused.pc_by_plan_reference(b, B, ws,
+                                                              alpha)))
+    print(f"V-cycle pc  m={m} levels {ms}, tail from level {lt} on {nb} "
+          f"blocks: max rel diff {err:.3e} (bound 1e-5); bitwise equal to "
+          f"the plain version split as planned {same}")
     check(err <= 1e-5, "V-cycle")
+    check(same, "V-cycle bitwise against the plan")
 
     tol, maxiter = 1e-6, 500
     ms_k, (xk, itk) = timed(
@@ -551,6 +601,12 @@ def phase_kernel(dev) -> dict:
     _, wall, busy, by_kernel = busy_profile(
         lambda: mgfused.solve(b, B, C, ws, alpha, tol, maxiter))
     print_breakdown(f"profile     m={m} solve", wall, busy, by_kernel)
+    chain = tail_chain(dev, m)
+    print(f"tail        m={m} tail from level {lt} on {nb} blocks: k_tail "
+          f"{chain['k_tail_us']:.2f} us a launch; below level 1 "
+          f"{chain['chain_us']:.2f} us a V-cycle in {chain['launches']} "
+          f"launches {chain['kernels']} (the parent's with --ab)",
+          flush=True)
 
     a2, b2, B2, C2, ws2 = grids_on(dev, 257, SEED + 3)
     x64, i64 = mgfused.solve(b2, B2, C2, ws2, a2, tol, maxiter, chunk=64)
@@ -2951,6 +3007,11 @@ def ab_child(pc: str, out: str):
     JSON line."""
     import os
     sys.path.insert(0, os.getcwd())
+    # this file imported the package beside it: take the working
+    # directory's instead
+    for name in [k for k in sys.modules
+                 if k.split(".")[0] == "proximalgalerkin_torch"]:
+        del sys.modules[name]
     from proximalgalerkin_torch.mesh import rectangle_mesh
     from proximalgalerkin_torch.models.obstacle_p1 import P1ObstacleSolver
     from proximalgalerkin_torch.ops import dia_spmv, mgfused
@@ -2969,8 +3030,10 @@ def ab_child(pc: str, out: str):
     elapsed = time.perf_counter() - t0
     _, wall, busy, _ = busy_profile(lambda: solver.solve(max_outer=1))
     np.save(out, res.u)
+    chain = tail_chain(dev) if pc == "mg" else None
     print(json.dumps({
         "package": mgfused.__file__, "pc": pc, "solve_s": elapsed,
+        "tail_chain": chain,
         "u_sha256": hashlib.sha256(res.u.tobytes()).hexdigest()[:16],
         "inner_ms": inner.ms, "cg": res.cg_its_total,
         "ms_per_cg_iteration": inner.ms / inner.its,
@@ -3005,6 +3068,8 @@ def ab(parent: str):
                 line = proc.stdout.strip().splitlines()[-1]
                 print(f"A/B {pc} {label}: {line}", flush=True)
                 runs.append(json.loads(line))
+                check(runs[-1]["package"].startswith(os.path.abspath(root)),
+                      f"A/B run in {root} took its own package")
             u = np.load(out)
             if pc == "mg":
                 u_mg = u

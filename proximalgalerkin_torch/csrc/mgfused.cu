@@ -41,12 +41,22 @@
 //   Each block stages its ring in shared memory and reads neighbours
 //   there. Three fine-grid passes remain per iteration (matvec, level-0
 //   down leg, level-0 up leg).
-// * Latency of the small levels. Every level from the first with
-//   m <= 65 (ops/mgfused.py level_plan; at the bench size levels 65, 33,
-//   17, 9, 5) runs in ONE block of 1024 threads with all of them in
-//   dynamic shared memory (91 KB at m = 65), walking each level without
-//   division and with one barrier per pass; a coarsest level of at most
-//   32 points is swept by one warp in registers (shuffles, no barrier).
+// * Latency of the small levels. The bottom of the cycle, from the first
+//   level (at most 257) whose remaining levels fit the shared memory of
+//   a cluster of 16 blocks (ops/mgfused.py level_plan; at the bench size
+//   levels 257, 129, 65, 33, 17, 9, 5), is ONE launch of k_tail as a
+//   thread-block cluster of 1024-thread blocks on neighbouring SMs (16,
+//   the non-portable size, ran faster than 8 on an H100: PERF.md). The
+//   levels above 33 lie across the cluster, a strip of rows in each
+//   block's shared memory; a block reads the one or two rows past its
+//   strip from its neighbours' shared memory (DSMEM), and the cluster
+//   barrier separates the passes. The levels of at most 33 run in block
+//   0 alone, as the one-block tail walks them, while the others wait at
+//   the barrier. A cycle whose first level is at most 65 keeps the one-block
+//   tail (a cluster of one block, 91 KB at m = 65). Each level is walked
+//   without division; a coarsest level of at most 32 points is swept by
+//   one warp in registers (shuffles, no barrier). Every pass is
+//   pointwise, so where the levels are split changes no bit.
 // * Scalar kernels. The reductions behind alpha and beta, and the loop
 //   condition, run in the last block of the kernel that makes the
 //   partials (a counter picks that block).
@@ -67,10 +77,13 @@
 //        -fmad=false -shared -Xcompiler -fPIC -o libmgfused.so mgfused.cu
 // Plain C interface, loaded with ctypes (proximalgalerkin_torch/ops/mgfused.py).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <float.h>
 
 #include <initializer_list>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -85,11 +98,16 @@ constexpr int CX = 32, CY = 8;
 constexpr int RX = 2 * CX + 3, RY = 2 * CY + 3;  // fine region of x
 constexpr int SX = RX - 2, SY = RY - 2;          // fine region of residuals
 constexpr int TAIL_T = 32;                       // tail block: 32 x 32
+constexpr int TAIL_ONE_MAX = 33;   // a cluster tail's levels in block 0
+constexpr int MAX_CLUSTER = 16;    // the most blocks of a cluster
 constexpr int COARSE_SWEEPS = 24;
+static_assert(COARSE_SWEEPS % 2 == 0, "the coarsest sweeps end in t");
 constexpr int MAX_LEVELS = 32;
 // dynamic shared memory a block may ask for: the SM's 227 KB less room for
 // the kernel's static shared memory
 constexpr int MAX_SMEM = 232448 - 1024;
+// mgf_ws_create's error when no cluster of the tail fits the card
+constexpr int ERR_NO_CLUSTER = -2;
 constexpr float OMEGA = 0.8f;
 
 // slots of the device state vector (ops/mgfused.py _SC_*). Slots below
@@ -173,20 +191,28 @@ __device__ __forceinline__ float restrict_at(const float* f, int ld, int r0,
   return c;
 }
 
-// (P e)(i, j) = 4 (R^T e R)(i, j): bilinear interpolation. All four
+// (P e)(i, j) = 4 (R^T e R)(i, j): bilinear interpolation from the
+// coarse rows e0 = row i / 2 and e1 = row (i + 1) / 2. All four
 // candidates are loaded (clamped in range) and the arithmetic picked by
 // selects, so that a warp of alternating parities does not diverge.
-__device__ __forceinline__ float prolong_at(const float* e, int i, int j,
-                                            int mc) {
-  const int I0 = i >> 1, J0 = j >> 1;
+__device__ __forceinline__ float prolong_rows(const float* e0,
+                                              const float* e1, int i,
+                                              int j) {
+  const int J0 = j >> 1;
   const bool oi = i & 1, oj = j & 1;
-  const int I1 = oi ? I0 + 1 : I0, J1 = oj ? J0 + 1 : J0;
-  const float e00 = e[I0 * mc + J0], e10 = e[I1 * mc + J0];
-  const float e01 = e[I0 * mc + J1], e11 = e[I1 * mc + J1];
+  const int J1 = oj ? J0 + 1 : J0;
+  const float e00 = e0[J0], e10 = e1[J0];
+  const float e01 = e0[J1], e11 = e1[J1];
   const float rc0 = oi ? 0.25f * e00 + 0.25f * e10 : 0.5f * e00;
   const float rc1 = oi ? 0.25f * e01 + 0.25f * e11 : 0.5f * e01;
   const float v = oj ? 0.25f * rc0 + 0.25f * rc1 : 0.5f * rc0;
   return 4.f * v;
+}
+
+__device__ __forceinline__ float prolong_at(const float* e, int i, int j,
+                                            int mc) {
+  const int I0 = i >> 1, I1 = (i & 1) ? I0 + 1 : I0;
+  return prolong_rows(e + I0 * mc, e + I1 * mc, i, j);
 }
 
 // Fixed-order tree over a 1-D block of NT threads; every thread must
@@ -737,14 +763,15 @@ __global__ void k_zout(const float* B, const float* w0, const float* t0,
 
 // ------------------------------------------------------------ the tail
 
-// Walks the points k = tid, tid + 1024, ... of an m x m level, keeping
-// (i, j) of k without a division in the loop.
+// Walks the points k = tid, tid + 1024, ... of an m x m level (or of some
+// rows of it), keeping (i, j) of k without a division: mul = 2^20 / m
+// rounded up (Tail::wmul) gives n / m exactly for n <= 1024, m < 600.
 struct Walk {
   int k, i, j, di, dj, m;
-  __device__ Walk(int tid, int m_) : k(tid), m(m_) {
-    i = tid / m;
+  __device__ Walk(int tid, int m_, unsigned mul) : k(tid), m(m_) {
+    i = int((unsigned(tid) * mul) >> 20);
     j = tid - i * m;
-    di = (TAIL_T * TAIL_T) / m;
+    di = int((unsigned(TAIL_T * TAIL_T) * mul) >> 20);
     dj = (TAIL_T * TAIL_T) - di * m;
   }
   __device__ void next() {
@@ -758,136 +785,371 @@ struct Walk {
   }
 };
 
-// The V-cycle from level lt down (levels m0 = ms[lt], ... , nl of them)
-// as one block of 32 x 32 threads with every level in dynamic shared
-// memory: b, w, x and t for each level (levels contiguous) and a ping-pong
-// buffer for the coarsest. bin: b of level lt; w: its diagonals, levels
-// contiguous; tout: the cycle's output at level lt.
+// The shape of a tail (tail_shape), fixed for a workspace and passed by
+// value. The nc levels above TAIL_ONE_MAX (none on one block) lie across
+// the cluster, block r holding rows [lo[l][r], lo[l][r + 1]) of level l;
+// the others lie whole in block 0. The rows of level nc, the first of
+// block 0's, are split evenly (lo[nc]) and each finer strip is twice its
+// coarser one, so that a block restricts into and prolongs from its own
+// strip but for a row at each edge. Shared memory, in floats: at soff[l]
+// the block's strips of cluster level l, b, w and x, then t (but at the
+// first level, whose t goes straight out), rows[l] rows each; at scr a
+// scratch strip of rows[0] + 2 rows of ms[0]; at blk block 0's levels,
+// b, w, x and t, each tot floats with its levels contiguous, and a
+// second buffer for the coarsest.
+constexpr int MAX_CL = 4;   // cluster levels (3 at most, from 257)
+struct Tail {
+  int nl, nc, scr, blk, tot;
+  int ms[MAX_LEVELS];       // level sizes
+  int woff[MAX_LEVELS];     // level offsets in w
+  unsigned wmul[MAX_LEVELS];   // 2^20 / ms rounded up (Walk)
+  int lo[MAX_CL + 1][MAX_CLUSTER + 1];
+  int rows[MAX_CL], soff[MAX_CL];
+};
+
+// The cluster barrier in its two halves: a block arrives once its reads
+// of the other blocks' shared memory and its writes there are done, and
+// waits before it reads what the others wrote (or, at the end, before it
+// leaves, so that its own memory outlives their reads).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// a 4-byte copy from global to shared memory, in flight until copy_wait
+__device__ __forceinline__ void copy_async(float* dst, const float* src) {
+  const unsigned d = unsigned(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+// waits for this thread's copies
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The strips of an array of one cluster level, read by rows: rows of this
+// block's strip in its shared memory, a row at most two before it or one
+// after it in the neighbouring block's (DSMEM). The level's other arrays
+// lie at the same distance from it in every block.
+struct Strips {
+  const float *mine, *prev, *next;
+  int lo, hi, plo, m;
+  __device__ const float* row(int i) const {
+    return i < lo    ? prev + (i - plo) * m
+           : i >= hi ? next + (i - hi) * m
+                     : mine + (i - lo) * m;
+  }
+};
+
+__device__ __forceinline__ Strips strips_of(const float* mine,
+                                            const Tail& tl, int nb, int rk,
+                                            int l) {
+  cg::cluster_group cl = cg::this_cluster();
+  Strips s;
+  s.m = tl.ms[l];
+  s.lo = tl.lo[l][rk];
+  s.hi = tl.lo[l][rk + 1];
+  s.plo = rk > 0 ? tl.lo[l][rk - 1] : 0;
+  s.mine = mine;
+  s.prev = rk > 0 ? cl.map_shared_rank(mine, rk - 1) : mine;
+  s.next = rk < nb - 1 ? cl.map_shared_rank(mine, rk + 1) : mine;
+  return s;
+}
+
+// an m x m level held whole in this block, read by rows
+__device__ __forceinline__ Strips whole(const float* a, int m) {
+  Strips s;
+  s.mine = s.prev = s.next = a;
+  s.lo = s.plo = 0;
+  s.hi = s.m = m;
+  return s;
+}
+
+// The V-cycle from level lt down (tl: its shape) in one launch: a cluster
+// of nb blocks of 32 x 32 threads (nb = 1: one block), with every level
+// in dynamic shared memory. bin: b of level lt; w: the diagonals, levels
+// contiguous; tout: the cycle's output at level lt. On a cluster level
+// each block works on its strip:
+//   down: the residual of the pre-smoothed x (on the strip and the row
+//     before it, into the scratch strip), then its restriction at the
+//     block's rows of the next level and their pre-smooth;
+//   up: x + P e (on the strip and a row each side, into the scratch
+//     strip), then its post-smooth into t.
+// Each pair of passes ends at the cluster barrier, as the next reads rows
+// of the neighbouring blocks; block 0's levels are walked whole, with a
+// block barrier a pass, while the others wait at the cluster barrier.
 __global__ void __launch_bounds__(TAIL_T * TAIL_T)
 k_tail(const float* __restrict__ bin, const float* __restrict__ w,
-       float* __restrict__ tout, const float* sc, int m0, int nl,
+       float* __restrict__ tout, const float* sc, const Tail tl,
        int gated) {
   if (dead(sc, gated)) return;
   extern __shared__ float smem[];
   const float alpha = sc[SC_ALPHA];
-  int ms[MAX_LEVELS], off[MAX_LEVELS];
-  ms[0] = m0;
-  off[0] = 0;
-  for (int l = 1; l < nl; ++l) {
-    ms[l] = (ms[l - 1] - 1) / 2 + 1;
-    off[l] = off[l - 1] + ms[l - 1] * ms[l - 1];
-  }
-  const int tot = off[nl - 1] + ms[nl - 1] * ms[nl - 1];
-  float* sb = smem;
-  float* sw = smem + tot;
-  float* sx = smem + 2 * tot;
-  float* st = smem + 3 * tot;
-  float* sy = smem + 4 * tot;
+  cg::cluster_group cl = cg::this_cluster();
+  const int nb = int(cl.num_blocks()), rk = int(cl.block_rank());
+  const int nl = tl.nl, nc = tl.nc, m0 = tl.ms[0];
+  const int* const ms = tl.ms;
+  const int* const off = tl.woff;
+  float* const scr = smem + tl.scr;
+  // block 0's levels: level l at off[l] - o0 of each array
+  const int o0 = off[nc], tot = tl.tot;
+  float* const sb = smem + tl.blk;
+  float* const sw = sb + tot;
+  float* const sx = sb + 2 * tot;
+  float* const st = sb + 3 * tot;
+  float* const sy = sb + 4 * tot;
   const int tid = threadIdx.y * TAIL_T + threadIdx.x;
   const int nt = TAIL_T * TAIL_T;
-#pragma unroll 8
-  for (int k = tid; k < tot; k += nt) sw[k] = w[k];
-#pragma unroll 8
-  for (int k = tid; k < m0 * m0; k += nt) {   // the same k as above
-    const float bv = bin[k];
-    sb[k] = bv;
-    sx[k] = xpre(bv, sw[k], alpha);
-  }
-  __syncthreads();
 
-  // down: the residual of the pre-smooth x into t, then its restriction
-  // and the pre-smooth of the next level
-  for (int l = 0; l < nl - 1; ++l) {
-    const int m = ms[l], mc = ms[l + 1];
-    const float *b = sb + off[l], *wl = sw + off[l], *x = sx + off[l];
-    float* t = st + off[l];
-    for (Walk p(tid, m); p.k < m * m; p.next()) {
-      const int i = p.i, j = p.j, idx = p.k;
-      t[idx] = resid(b[idx], wl[idx], alpha, x[idx],
-                     i > 0 ? x[idx - m] : 0.f, i < m - 1 ? x[idx + m] : 0.f,
-                     j > 0 ? x[idx - 1] : 0.f, j < m - 1 ? x[idx + 1] : 0.f);
+  if (nc == 0) {
+#pragma unroll 8
+    for (int k = tid; k < tot; k += nt) sw[k] = w[k];
+#pragma unroll 8
+    for (int k = tid; k < m0 * m0; k += nt) {   // the same k as above
+      const float bv = bin[k];
+      sb[k] = bv;
+      sx[k] = xpre(bv, sw[k], alpha);
     }
     __syncthreads();
-    float *bc = sb + off[l + 1], *xc = sx + off[l + 1];
-    const float* wc = sw + off[l + 1];
-    for (Walk p(tid, mc); p.k < mc * mc; p.next()) {
-      const float bv = restrict_at(t, m, 0, 0, p.i, p.j, m, mc);
-      bc[p.k] = bv;
-      xc[p.k] = xpre(bv, wc[p.k], alpha);
+  } else {
+    // every copy in flight at once: w of each strip (and of block 0's
+    // levels), b of the first level's strip
+    for (int l = 0; l < nc; ++l) {
+      const int m = ms[l], dw = tl.rows[l] * m;
+      const int lo = tl.lo[l][rk];
+      const int n = (tl.lo[l][rk + 1] - lo) * m;
+      float* const b = smem + tl.soff[l];
+      const float* const wl = w + off[l] + lo * m;
+      for (int k = tid; k < n; k += nt) copy_async(b + dw + k, wl + k);
+      if (l == 0)
+        for (int k = tid; k < n; k += nt) copy_async(b + k, bin + lo * m + k);
     }
-    __syncthreads();
-  }
+    if (rk == 0)
+      for (int k = tid; k < tot; k += nt) copy_async(sw + k, w + o0 + k);
+    copy_wait();
+    {
+      const int m = m0, dw = tl.rows[0] * m;
+      const int n = (tl.lo[0][rk + 1] - tl.lo[0][rk]) * m;
+      float* const b = smem + tl.soff[0];
+      for (int k = tid; k < n; k += nt)   // the k this thread copied
+        b[2 * dw + k] = xpre(b[k], b[dw + k], alpha);
+    }
+    cluster_sync();
 
-  // coarsest: COARSE_SWEEPS sweeps from zero
-  const float* e;
-  {
-    const int l = nl - 1, m = ms[l], n = m * m;
-    const float *b = sb + off[l], *wl = sw + off[l];
-    if (n <= 32) {
-      // one warp, one point a lane, neighbours by shuffles
-      if (tid < 32) {
-        const bool in = tid < n;
-        const int i = in ? tid / m : 0, j = in ? tid - i * m : 0;
-        const float bv = in ? b[tid] : 0.f, wv = in ? wl[tid] : 0.f;
-        float xv = 0.f;
-        for (int s = 0; s < COARSE_SWEEPS; ++s) {
-          const float xn = __shfl_sync(FULL, xv, (tid - m) & 31);
-          const float xs = __shfl_sync(FULL, xv, (tid + m) & 31);
-          const float xw = __shfl_sync(FULL, xv, (tid - 1) & 31);
-          const float xe = __shfl_sync(FULL, xv, (tid + 1) & 31);
-          const float nx = smooth(bv, wv, alpha, xv, i > 0 ? xn : 0.f,
-                                  i < m - 1 ? xs : 0.f, j > 0 ? xw : 0.f,
-                                  j < m - 1 ? xe : 0.f);
-          xv = in ? nx : 0.f;
+    // down across the cluster
+    for (int l = 0; l < nc; ++l) {
+      const int m = ms[l], mc = ms[l + 1];
+      const int dw = tl.rows[l] * m, dx = 2 * dw;
+      const float* const own = smem + tl.soff[l];
+      const Strips L = strips_of(own, tl, nb, rk, l);
+      const int lo = L.lo, hi = L.hi, a = lo > 0 ? lo - 1 : 0;
+      // the residual into scratch row i - lo + 1
+      for (Walk p(tid, m, tl.wmul[l]); p.k < (hi - a) * m; p.next()) {
+        const int i = a + p.i, j = p.j;
+        float v;
+        if (i > lo && i < hi - 1) {   // rows of this block alone
+          const int k = (i - lo) * m + j;
+          const float* x = own + dx + k;
+          v = resid(own[k], own[dw + k], alpha, x[0], x[-m], x[m],
+                    j > 0 ? x[-1] : 0.f, j < m - 1 ? x[1] : 0.f);
+        } else {
+          const float* r = L.row(i);
+          const float* rn = L.row(i > 0 ? i - 1 : i) + dx;
+          const float* rs = L.row(i < m - 1 ? i + 1 : i) + dx;
+          const float* x = r + dx;
+          v = resid(r[j], r[dw + j], alpha, x[j], i > 0 ? rn[j] : 0.f,
+                    i < m - 1 ? rs[j] : 0.f, j > 0 ? x[j - 1] : 0.f,
+                    j < m - 1 ? x[j + 1] : 0.f);
         }
-        if (in) st[off[l] + tid] = xv;
+        scr[(i - lo + 1) * m + j] = v;
       }
       __syncthreads();
-      e = st + off[l];
-    } else {
-      const float* src = nullptr;
-      float* dst = st + off[l];
-      float* other = sy;
-      for (int s = 0; s < COARSE_SWEEPS; ++s) {
-        for (Walk p(tid, m); p.k < n; p.next()) {
-          const int i = p.i, j = p.j, idx = p.k;
-          float xc = 0.f, xn = 0.f, xs = 0.f, xw = 0.f, xe = 0.f;
-          if (src) {
-            xc = src[idx];
-            if (i > 0) xn = src[idx - m];
-            if (i < m - 1) xs = src[idx + m];
-            if (j > 0) xw = src[idx - 1];
-            if (j < m - 1) xe = src[idx + 1];
-          }
-          dst[idx] = smooth(b[idx], wl[idx], alpha, xc, xn, xs, xw, xe);
-        }
-        __syncthreads();
-        float* nd = (s == 0) ? other : const_cast<float*>(src);
-        src = dst;
-        dst = nd;
+      const int clo = tl.lo[l + 1][rk];
+      const int chi = tl.lo[l + 1][rk + 1];
+      float *bc, *xc;
+      const float* wc;
+      if (l + 1 < nc) {
+        const int dc = tl.rows[l + 1] * mc;
+        bc = smem + tl.soff[l + 1];
+        wc = bc + dc;
+        xc = bc + 2 * dc;
+      } else {   // into block 0, its rows clo .. chi - 1
+        bc = cl.map_shared_rank(sb, 0) + clo * mc;
+        wc = cl.map_shared_rank(sw, 0) + clo * mc;
+        xc = cl.map_shared_rank(sx, 0) + clo * mc;
       }
-      e = src;
+      for (Walk p(tid, mc, tl.wmul[l + 1]); p.k < (chi - clo) * mc; p.next()) {
+        const float bv =
+            restrict_at(scr, m, lo - 1, 0, clo + p.i, p.j, m, mc);
+        bc[p.k] = bv;
+        xc[p.k] = xpre(bv, wc[p.k], alpha);
+      }
+      cluster_sync();
     }
   }
 
-  // up: x += P e, then the post-smooth of x into t
-  for (int l = nl - 2; l >= 0; --l) {
-    const int m = ms[l], mc = ms[l + 1];
-    const float *b = sb + off[l], *wl = sw + off[l];
-    float *x = sx + off[l], *t = st + off[l];
-    for (Walk p(tid, m); p.k < m * m; p.next())
-      x[p.k] = x[p.k] + prolong_at(e, p.i, p.j, mc);
-    __syncthreads();
-    for (Walk p(tid, m); p.k < m * m; p.next()) {
-      const int i = p.i, j = p.j, idx = p.k;
-      t[idx] = smooth(b[idx], wl[idx], alpha, x[idx],
-                      i > 0 ? x[idx - m] : 0.f, i < m - 1 ? x[idx + m] : 0.f,
-                      j > 0 ? x[idx - 1] : 0.f, j < m - 1 ? x[idx + 1] : 0.f);
+  if (rk == 0) {
+    // down: the residual of the pre-smooth x into t, then its restriction
+    // and the pre-smooth of the next level
+    for (int l = nc; l < nl - 1; ++l) {
+      const int m = ms[l], mc = ms[l + 1];
+      const float *b = sb + off[l] - o0, *wl = sw + off[l] - o0;
+      const float* x = sx + off[l] - o0;
+      float* t = st + off[l] - o0;
+      for (Walk p(tid, m, tl.wmul[l]); p.k < m * m; p.next()) {
+        const int i = p.i, j = p.j, idx = p.k;
+        t[idx] = resid(b[idx], wl[idx], alpha, x[idx],
+                       i > 0 ? x[idx - m] : 0.f,
+                       i < m - 1 ? x[idx + m] : 0.f,
+                       j > 0 ? x[idx - 1] : 0.f,
+                       j < m - 1 ? x[idx + 1] : 0.f);
+      }
+      __syncthreads();
+      float *bc = sb + off[l + 1] - o0, *xc = sx + off[l + 1] - o0;
+      const float* wc = sw + off[l + 1] - o0;
+      for (Walk p(tid, mc, tl.wmul[l + 1]); p.k < mc * mc; p.next()) {
+        const float bv = restrict_at(t, m, 0, 0, p.i, p.j, m, mc);
+        bc[p.k] = bv;
+        xc[p.k] = xpre(bv, wc[p.k], alpha);
+      }
+      __syncthreads();
     }
-    __syncthreads();
-    e = t;
+
+    // coarsest: COARSE_SWEEPS sweeps from zero, into t
+    {
+      const int l = nl - 1, m = ms[l], n = m * m;
+      const float *b = sb + off[l] - o0, *wl = sw + off[l] - o0;
+      float* const out = st + off[l] - o0;
+      if (n <= 32) {
+        // one warp, one point a lane, neighbours by shuffles
+        if (tid < 32) {
+          const bool in = tid < n;
+          const int i = in ? tid / m : 0, j = in ? tid - i * m : 0;
+          const float bv = in ? b[tid] : 0.f, wv = in ? wl[tid] : 0.f;
+          float xv = 0.f;
+          for (int s = 0; s < COARSE_SWEEPS; ++s) {
+            const float xn = __shfl_sync(FULL, xv, (tid - m) & 31);
+            const float xs = __shfl_sync(FULL, xv, (tid + m) & 31);
+            const float xw = __shfl_sync(FULL, xv, (tid - 1) & 31);
+            const float xe = __shfl_sync(FULL, xv, (tid + 1) & 31);
+            const float nx = smooth(bv, wv, alpha, xv, i > 0 ? xn : 0.f,
+                                    i < m - 1 ? xs : 0.f, j > 0 ? xw : 0.f,
+                                    j < m - 1 ? xe : 0.f);
+            xv = in ? nx : 0.f;
+          }
+          if (in) out[tid] = xv;
+        }
+        __syncthreads();
+      } else {
+        // ping-pong between sy and out, starting in sy: an even number of
+        // sweeps ends in out
+        const float* src = nullptr;
+        float* dst = sy;
+        float* other = out;
+        for (int s = 0; s < COARSE_SWEEPS; ++s) {
+          for (Walk p(tid, m, tl.wmul[l]); p.k < n; p.next()) {
+            const int i = p.i, j = p.j, idx = p.k;
+            float xc = 0.f, xn = 0.f, xs = 0.f, xw = 0.f, xe = 0.f;
+            if (src) {
+              xc = src[idx];
+              if (i > 0) xn = src[idx - m];
+              if (i < m - 1) xs = src[idx + m];
+              if (j > 0) xw = src[idx - 1];
+              if (j < m - 1) xe = src[idx + 1];
+            }
+            dst[idx] = smooth(b[idx], wl[idx], alpha, xc, xn, xs, xw, xe);
+          }
+          __syncthreads();
+          float* nd = (s == 0) ? other : const_cast<float*>(src);
+          src = dst;
+          dst = nd;
+        }
+      }
+    }
+
+    // up: x += P e, then the post-smooth of x into t
+    for (int l = nl - 2; l >= nc; --l) {
+      const int m = ms[l], mc = ms[l + 1];
+      const float *b = sb + off[l] - o0, *wl = sw + off[l] - o0;
+      float *x = sx + off[l] - o0, *t = st + off[l] - o0;
+      const float* e = st + off[l + 1] - o0;
+      for (Walk p(tid, m, tl.wmul[l]); p.k < m * m; p.next())
+        x[p.k] = x[p.k] + prolong_at(e, p.i, p.j, mc);
+      __syncthreads();
+      for (Walk p(tid, m, tl.wmul[l]); p.k < m * m; p.next()) {
+        const int i = p.i, j = p.j, idx = p.k;
+        t[idx] = smooth(b[idx], wl[idx], alpha, x[idx],
+                        i > 0 ? x[idx - m] : 0.f,
+                        i < m - 1 ? x[idx + m] : 0.f,
+                        j > 0 ? x[idx - 1] : 0.f,
+                        j < m - 1 ? x[idx + 1] : 0.f);
+      }
+      __syncthreads();
+    }
   }
-  for (int k = tid; k < m0 * m0; k += nt) tout[k] = e[k];
+  if (nc == 0) {
+    for (int k = tid; k < m0 * m0; k += nt) tout[k] = st[k];
+    return;
+  }
+
+  // up across the cluster, from block 0's output at level nc
+  cluster_sync();
+  for (int l = nc - 1; l >= 0; --l) {
+    const int m = ms[l], mc = ms[l + 1];
+    const int dw = tl.rows[l] * m, dx = 2 * dw;
+    float* const b = smem + tl.soff[l];
+    const Strips L = strips_of(b, tl, nb, rk, l);
+    const int lo = L.lo, hi = L.hi;
+    const int a = lo > 0 ? lo - 1 : 0, z = hi < m ? hi + 1 : m;
+    // e: t of level l + 1, in strips, or whole in block 0, whose rows
+    // a / 2 .. z / 2 that this block reads it copies into its own st first
+    const float* const e =
+        l + 1 < nc ? smem + tl.soff[l + 1] + 3 * tl.rows[l + 1] * mc : st;
+    if (l + 1 == nc && rk != 0) {
+      const float* const e0 = cl.map_shared_rank(st, 0);
+      const int end = ((z >> 1) < mc - 1 ? (z >> 1) + 1 : mc) * mc;
+      for (int k = (a >> 1) * mc + tid; k < end; k += nt) st[k] = e0[k];
+      __syncthreads();
+    }
+    const Strips E =
+        l + 1 < nc ? strips_of(e, tl, nb, rk, l + 1) : whole(st, mc);
+    // x + P e into scratch row i - lo + 1
+    for (Walk p(tid, m, tl.wmul[l]); p.k < (z - a) * m; p.next()) {
+      const int i = a + p.i, j = p.j, I0 = i >> 1;
+      const int I1 = (i & 1) ? I0 + 1 : I0;
+      float v;
+      if (i >= lo && i < hi && I1 < E.hi) {   // rows of this block alone
+        v = b[dx + (i - lo) * m + j] +
+            prolong_rows(e + (I0 - E.lo) * mc, e + (I1 - E.lo) * mc, i, j);
+      } else {
+        v = L.row(i)[dx + j] + prolong_rows(E.row(I0), E.row(I1), i, j);
+      }
+      scr[(i - lo + 1) * m + j] = v;
+    }
+    if (l == 0) cluster_arrive();   // the last reads of other blocks
+    __syncthreads();
+    // the post-smooth into t (at level lt: into tout)
+    float* const t = l > 0 ? b + 3 * dw : tout + lo * m;
+    for (Walk p(tid, m, tl.wmul[l]); p.k < (hi - lo) * m; p.next()) {
+      const int i = lo + p.i, j = p.j;
+      const float* u = scr + (p.i + 1) * m + j;
+      t[p.k] = smooth(b[p.k], b[dw + p.k], alpha, u[0],
+                      i > 0 ? u[-m] : 0.f, i < m - 1 ? u[m] : 0.f,
+                      j > 0 ? u[-1] : 0.f, j < m - 1 ? u[1] : 0.f);
+    }
+    if (l > 0) cluster_sync();
+  }
+  cluster_wait();
 }
 
 // ------------------------------------------------------------ host side
@@ -903,12 +1165,53 @@ int levels_for(int m, int* ms) {
   return L;
 }
 
-// dynamic shared memory of a tail from level lt: b, w, x and t of each
-// level and a second buffer for the coarsest
-long long tail_bytes(const int* ms, int L, int lt) {
-  long long tot = 0;
-  for (int l = lt; l < L; ++l) tot += (long long)ms[l] * ms[l];
-  return 4LL * (4 * tot + (long long)ms[L - 1] * ms[L - 1]);
+// The shape of the tail on the levels ms[0 .. nl) over nb blocks (see
+// Tail); returns the floats of its shared memory, or -1 when the kernel
+// cannot run it: a cluster tail has levels on both sides of TAIL_ONE_MAX,
+// and the walks take levels below 600.
+long long tail_shape(const int* ms, int nl, int nb, Tail* tl) {
+  if (nl < 1 || nb < 1 || nb > MAX_CLUSTER || ms[0] >= 600) return -1;
+  Tail t = {};
+  t.nl = nl;
+  int o = 0;
+  for (int l = 0; l < nl; ++l) {
+    t.ms[l] = ms[l];
+    t.woff[l] = o;
+    t.wmul[l] = ((1u << 20) + unsigned(ms[l]) - 1) / unsigned(ms[l]);
+    o += ms[l] * ms[l];
+  }
+  while (nb > 1 && t.nc < nl && ms[t.nc] > TAIL_ONE_MAX) ++t.nc;
+  const int nc = t.nc;
+  if (nb > 1 && (nc == 0 || nc == nl || nc > MAX_CL)) return -1;
+  long long f = 0;
+  for (int l = nc; l >= 0 && nc > 0; --l) {
+    for (int r = 0; r <= nb; ++r)
+      t.lo[l][r] = r == nb ? ms[l] : (r * ms[nc] / nb) << (nc - l);
+    if (l == nc) continue;
+    for (int r = 0; r < nb; ++r) {
+      const int k = t.lo[l][r + 1] - t.lo[l][r];
+      t.rows[l] = k > t.rows[l] ? k : t.rows[l];
+    }
+  }
+  for (int l = 0; l < nc; ++l) {
+    t.soff[l] = int(f);
+    f += (l == 0 ? 3 : 4) * (long long)t.rows[l] * ms[l];
+  }
+  t.scr = int(f);
+  if (nc > 0) f += (long long)(t.rows[0] + 2) * ms[0];
+  t.blk = int(f);
+  t.tot = o - t.woff[nc];
+  f += 4LL * t.tot + (long long)ms[nl - 1] * ms[nl - 1];
+  if (tl) *tl = t;
+  return f;
+}
+
+// dynamic shared memory of the tail from level lt on nb blocks, or -1
+// when the kernel cannot run it (tail_shape) or it does not fit a block
+long long tail_bytes(const int* ms, int L, int lt, int nb) {
+  if (lt < 0 || lt >= L) return -1;
+  const long long f = tail_shape(ms + lt, L - lt, nb, nullptr);
+  return f < 0 || 4 * f > MAX_SMEM ? -1 : 4 * f;
 }
 
 inline int nblocks(long long n) { return int((n + NT - 1) / NT); }
@@ -917,9 +1220,13 @@ inline size_t matvec_smem(int m) { return 4 * size_t(band_span(m) + BAND); }
 inline size_t up0_smem(int m) { return 4 * size_t(band_span(m) + 2 * BAND); }
 
 // lets the kernels with m-sized shared memory take up to MAX_SMEM
+// (and k_tail a cluster of more than 8 blocks, where the card has them)
 cudaError_t allow_smem() {
   cudaError_t e = cudaFuncSetAttribute(
-      k_tail, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+      k_tail, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(
+        k_tail, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(
         k_matvec, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
@@ -934,6 +1241,8 @@ enum { OFF_B = 0, OFF_C, OFF_W, OFF_R0, OFF_XB, OFF_Z, OFF_SC, OFF_N };
 
 struct Ws {
   int m = 0, L = 0, lt = 0;     // lt: first level of the tail (L: none)
+  int nb = 1;                   // blocks of the tail's cluster
+  Tail tail;
   int ms[MAX_LEVELS];
   long long woff[MAX_LEVELS];
   long long off[OFF_N];
@@ -1016,13 +1325,34 @@ int sweeps(const Ws& ws, int c, int gated, cudaStream_t st, float** out) {
   return 0;
 }
 
+// the launch of the tail: one cluster of ws.nb blocks (at holds its
+// attribute)
+cudaLaunchConfig_t tail_config(const Ws& ws, cudaStream_t st,
+                               cudaLaunchAttribute* at) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ws.nb);
+  cfg.blockDim = dim3(TAIL_T, TAIL_T);
+  cfg.dynamicSmemBytes = ws.tail_smem;
+  cfg.stream = st;
+  at->id = cudaLaunchAttributeClusterDimension;
+  at->val.clusterDim.x = ws.nb;
+  at->val.clusterDim.y = 1;
+  at->val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
 // The bottom of the cycle at level l (the tail, or the sweeps of a
 // coarsest level too large for it); *out: the buffer holding its output.
 int bottom(const Ws& ws, int l, int gated, cudaStream_t st, float** out) {
   if (l == ws.lt) {
-    k_tail<<<1, dim3(TAIL_T, TAIL_T), ws.tail_smem, st>>>(
-        ws.b[l], ws.w + ws.woff[l], ws.t[l], ws.sc, ws.ms[l], ws.L - l,
-        gated);
+    cudaLaunchAttribute at;
+    const cudaLaunchConfig_t cfg = tail_config(ws, st, &at);
+    cudaError_t e = cudaLaunchKernelEx(
+        &cfg, k_tail, (const float*)ws.b[l], (const float*)(ws.w + ws.woff[l]),
+        ws.t[l], (const float*)ws.sc, ws.tail, gated);
+    if (e != cudaSuccess) return int(e);
     CHECK_LAUNCH();
     *out = ws.t[l];
     return 0;
@@ -1114,28 +1444,34 @@ int enqueue_chunk(const Ws& ws, int chunk, int first, cudaStream_t st) {
 extern "C" {
 
 const char* mgf_error_string(int err) {
+  if (err == ERR_NO_CLUSTER)
+    return "the tail's cluster fits nowhere on this card "
+           "(cudaOccupancyMaxActiveClusters is 0)";
   return cudaGetErrorString(cudaError_t(err));
 }
 
-// Floats of the workspace for m with the tail from level lt (the wrapper's
-// level_plan); -1 when lt is out of range or its tail does not fit one
-// block's shared memory.
-long long mgf_ws_floats(int m, int lt) {
+// Floats of the workspace for m with the tail from level lt on a cluster
+// of nb blocks (the wrapper's level_plan); -1 when the kernel cannot run
+// that tail (tail_bytes).
+long long mgf_ws_floats(int m, int lt, int nb) {
   Ws ws;
   ws.m = m;
   ws.L = levels_for(m, ws.ms);
   if (lt < 0 || lt > ws.L) return -1;
-  if (lt < ws.L && tail_bytes(ws.ms, ws.L, lt) > MAX_SMEM) return -1;
+  if (lt == ws.L ? nb != 1 : tail_bytes(ws.ms, ws.L, lt, nb) < 0) return -1;
   if (up0_smem(m) > size_t(MAX_SMEM)) return -1;
   ws.lt = lt;
+  ws.nb = nb;
   return layout(ws, nullptr);
 }
 
-// The workspace over fbase (mgf_ws_floats(m, lt) floats) and cnt (two
-// zeroed counters). Returns a handle, or null with *err set.
-void* mgf_ws_create(int m, int lt, float* fbase, unsigned* cnt, int* err) {
+// The workspace over fbase (mgf_ws_floats(m, lt, nb) floats) and cnt (two
+// zeroed counters), once the card was found to hold the tail's cluster.
+// Returns a handle, or null with *err set.
+void* mgf_ws_create(int m, int lt, int nb, float* fbase, unsigned* cnt,
+                    int* err) {
   *err = 0;
-  if (mgf_ws_floats(m, lt) < 0) {
+  if (mgf_ws_floats(m, lt, nb) < 0) {
     *err = int(cudaErrorInvalidValue);
     return nullptr;
   }
@@ -1143,11 +1479,26 @@ void* mgf_ws_create(int m, int lt, float* fbase, unsigned* cnt, int* err) {
   ws->m = m;
   ws->L = levels_for(m, ws->ms);
   ws->lt = lt;
+  ws->nb = nb;
   layout(*ws, fbase);
   ws->cnt = cnt;
   ws->t0 = cycle_output(*ws);
-  if (lt < ws->L) ws->tail_smem = size_t(tail_bytes(ws->ms, ws->L, lt));
+  if (lt < ws->L) {
+    ws->tail_smem = size_t(tail_bytes(ws->ms, ws->L, lt, nb));
+    tail_shape(ws->ms + lt, ws->L - lt, nb, &ws->tail);
+  }
   cudaError_t e = allow_smem();
+  if (e == cudaSuccess && lt < ws->L) {
+    cudaLaunchAttribute at;
+    const cudaLaunchConfig_t cfg = tail_config(*ws, nullptr, &at);
+    int clusters = 0;
+    e = cudaOccupancyMaxActiveClusters(&clusters, k_tail, &cfg);
+    if (e == cudaSuccess && clusters < 1) {
+      delete ws;
+      *err = ERR_NO_CLUSTER;
+      return nullptr;
+    }
+  }
   if (e == cudaSuccess)
     e = cudaStreamCreateWithFlags(&ws->cap, cudaStreamNonBlocking);
   if (e != cudaSuccess) {

@@ -32,8 +32,10 @@ per (chunk, first) and replayed by one host call per chunk
 (csrc/mgfused.cu). Every solve of one m on one device uses that
 workspace, so such solves must not run at once on two streams or
 threads. The V-cycle is split as `level_plan` says: one down-leg and one
-up-leg grid kernel per level above the tail, then every level from the
-first with m <= 65 in one block.
+up-leg grid kernel per level above the tail, then the tail, one launch
+of the bottom of the cycle: on a thread-block cluster of 16 blocks from
+the first level (at most 257) whose remaining levels fit the cluster's
+shared memory, or in one block when the first level is at most 65.
 """
 
 from __future__ import annotations
@@ -54,9 +56,18 @@ STALL_WINDOW = 16
 STALL_GUARD = 1e4
 _TINY = float(np.finfo(np.float32).tiny)
 
-# the largest level the one-block tail takes; the tail's levels then fit
-# one block's shared memory (at most 92 KB, csrc/mgfused.cu tail_bytes)
+# the largest first level of a one-block tail (at most 92 KB of shared
+# memory, csrc/mgfused.cu tail_shape)
 _TAIL_MAX = 65
+# blocks of a cluster tail: 16, the non-portable cluster size an H100
+# takes (faster than the portable 8 there: PERF.md, Findings)
+_CLUSTER = 16
+# a cluster tail's levels of at most this size run in block 0 alone
+_TAIL_ONE_MAX = 33
+# the largest first level of a cluster tail
+_CLUSTER_TOP = 257
+# dynamic shared memory a block may ask for (csrc/mgfused.cu MAX_SMEM)
+MAX_SMEM = 232448 - 1024
 
 # slots of the kernel's device state vector (csrc/mgfused.cu SC_*)
 _SC_IT, _SC_LIVE, _SC_BETA = 0, 7, 10
@@ -105,6 +116,42 @@ def _alpha(alpha_s: float, dev) -> torch.Tensor:
     return torch.tensor(_f32(alpha_s), dtype=torch.float32, device=dev)
 
 
+def restrict_pointwise(f: torch.Tensor) -> torch.Tensor:
+    """Full weighting R f R^T (m = 2 M + 1 -> M + 1) in the kernel's order
+    (csrc/mgfused.cu restrict_at): rows first, then columns, each sum
+    taken from zero, left to right. ops/mg.restrict's matrix products
+    give the same terms, but a product may split a sum (on the card at
+    every size, on the CPU from m = 1025), and then its bits differ; so
+    only pc_by_plan_reference, which the kernel must match bit for bit,
+    uses this pair."""
+    m = f.shape[0]
+    mc = (m - 1) // 2 + 1
+    u = torch.zeros((mc, m), dtype=f.dtype, device=f.device)
+    u[1:] = u[1:] + 0.25 * f[1:-1:2]
+    u = u + 0.5 * f[0::2]
+    u[:-1] = u[:-1] + 0.25 * f[1::2]
+    c = torch.zeros((mc, mc), dtype=f.dtype, device=f.device)
+    c[:, 1:] = c[:, 1:] + 0.25 * u[:, 1:-1:2]
+    c = c + 0.5 * u[:, 0::2]
+    c[:, :-1] = c[:, :-1] + 0.25 * u[:, 1::2]
+    return c
+
+
+def prolong_pointwise(e: torch.Tensor) -> torch.Tensor:
+    """Bilinear prolongation 4 R^T e R (M + 1 -> 2 M + 1) in the kernel's
+    order (csrc/mgfused.cu prolong_rows): rows, then columns, then the
+    factor 4."""
+    mc = e.shape[0]
+    m = 2 * (mc - 1) + 1
+    r = torch.empty((m, mc), dtype=e.dtype, device=e.device)
+    r[0::2] = 0.5 * e
+    r[1::2] = 0.25 * e[:-1] + 0.25 * e[1:]
+    p = torch.empty((m, m), dtype=e.dtype, device=e.device)
+    p[:, 0::2] = 0.5 * r
+    p[:, 1::2] = 0.25 * r[:, :-1] + 0.25 * r[:, 1:]
+    return 4.0 * p
+
+
 def _matvec(B, C, alpha):
     """p -> S p = alpha * B * K5(B * p) + C * p (alpha a 0-d f32 tensor)."""
     return lambda p: alpha * (B * k5_apply(B * p)) + C * p
@@ -138,53 +185,131 @@ def matvec_update_reference(t0, p_old, B, C, w0, alpha_s: float,
     return pn, _matvec(B, C, alpha)(pn)
 
 
+def _down(b, w, alpha, restrict_):
+    x = OMEGA * b / (alpha * 4.0 + w)
+    return restrict_(b - (alpha * k5_apply(x) + w * x))
+
+
+def _up(b, w, e, alpha, prolong_):
+    d = alpha * 4.0 + w
+    x = OMEGA * b / d + prolong_(e)
+    return x + OMEGA * (b - (alpha * k5_apply(x) + w * x)) / d
+
+
 def down_reference(b, w, alpha_s: float):
     """Plain version of the kernel's down leg of a level: the residual of
     the pre-smooth from zero, restricted to the next level."""
-    alpha = _alpha(alpha_s, b.device)
-    x = OMEGA * b / (alpha * 4.0 + w)
-    return restrict(b - (alpha * k5_apply(x) + w * x))
+    return _down(b, w, _alpha(alpha_s, b.device), restrict)
 
 
 def up_reference(b, w, e, alpha_s: float):
     """Plain version of the kernel's up leg of a level: the post-smooth of
     the pre-smoothed x plus the prolonged coarse correction e."""
-    alpha = _alpha(alpha_s, b.device)
-    d = alpha * 4.0 + w
-    x = OMEGA * b / d + prolong(e)
-    return x + OMEGA * (b - (alpha * k5_apply(x) + w * x)) / d
+    return _up(b, w, e, _alpha(alpha_s, b.device), prolong)
 
 
-def level_plan(m: int) -> Tuple[List[int], int]:
-    """(level sizes, lt): the kernel's split of the V-cycle. Levels
-    0 .. lt-1 take one down-leg and one up-leg grid kernel each; levels
-    lt .. L-1 run in the one-block tail, which starts at the first level
-    with m <= 65 (lt = L: no such level, and the coarsest level is swept
-    by grid kernels). The kernel takes lt from here."""
+def cluster_levels(tail: Sequence[int], nb: int) -> int:
+    """How many of a tail's levels lie across its cluster of nb blocks
+    (those above _TAIL_ONE_MAX; none when nb = 1); block 0 holds the
+    rest whole (csrc/mgfused.cu tail_shape)."""
+    nc = 0
+    while nb > 1 and nc < len(tail) and tail[nc] > _TAIL_ONE_MAX:
+        nc += 1
+    return nc
+
+
+def tail_bytes(tail: Sequence[int], nb: int) -> int:
+    """Dynamic shared memory of each block of a tail on the levels `tail`
+    with a cluster of nb blocks, by the kernel's arithmetic
+    (csrc/mgfused.cu tail_shape): per cluster level the block's strips
+    of b, w and x (and t below the first level), a scratch strip with a
+    row each side, then block 0's levels whole (b, w, x, t and a second
+    buffer for the coarsest)."""
+    nc = cluster_levels(tail, nb)
+
+    def lo(l, r):
+        return tail[l] if r >= nb else (r * tail[nc] // nb) << (nc - l)
+
+    rows = [max(lo(l, r + 1) - lo(l, r) for r in range(nb))
+            for l in range(nc)]
+    floats = sum((3 if l == 0 else 4) * rows[l] * tail[l]
+                 for l in range(nc))
+    if nc:
+        floats += (rows[0] + 2) * tail[0]
+    floats += 4 * sum(k * k for k in tail[nc:]) + tail[-1] ** 2
+    return 4 * floats
+
+
+def level_plan(m: int) -> Tuple[List[int], int, int]:
+    """(level sizes, lt, nb): the kernel's split of the V-cycle, from the
+    level sizes alone. Levels 0 .. lt-1 take one down-leg and one up-leg
+    grid kernel each; levels lt .. L-1 run in the tail, one launch on a
+    cluster of nb blocks. The tail starts at the first level that is
+    either at most 65 (the one-block tail, nb = 1) or at most 257 with
+    its remaining levels ending at most at 33 and fitting the shared
+    memory of a cluster of _CLUSTER blocks. lt = L: no such level, and
+    the coarsest level is swept by grid kernels. The kernel takes lt and
+    nb from here, and refuses a tail it cannot run (mgf_ws_floats; the
+    GPU tests hold the two sides to the same split at every m)."""
     ms = _levels_for(m)
-    return ms, next((l for l, ml in enumerate(ms) if ml <= _TAIL_MAX),
-                    len(ms))
+    for lt, top in enumerate(ms):
+        if top <= _TAIL_MAX:
+            return ms, lt, 1
+        tail = ms[lt:]
+        if (top <= _CLUSTER_TOP
+                and cluster_levels(tail, _CLUSTER) < len(tail)
+                and tail_bytes(tail, _CLUSTER) <= MAX_SMEM):
+            return ms, lt, _CLUSTER
+    return ms, len(ms), 1
+
+
+def _vcycle_pointwise(ws: Sequence[torch.Tensor], alpha, b):
+    """ops/mg.vcycle (V(1,1), OMEGA, COARSE_SWEEPS) with the transfers in
+    the kernel's order."""
+    w = ws[0]
+    d = alpha * 4.0 + w
+
+    def smooth(x, sweeps):
+        for _ in range(sweeps):
+            x = x + OMEGA * (b - (alpha * k5_apply(x) + w * x)) / d
+        return x
+
+    if len(ws) == 1:
+        return smooth(torch.zeros_like(b), COARSE_SWEEPS)
+    x = smooth(torch.zeros_like(b), 1)
+    r = b - (alpha * k5_apply(x) + w * x)
+    e = _vcycle_pointwise(ws[1:], alpha, restrict_pointwise(r))
+    return smooth(x + prolong_pointwise(e), 1)
+
+
+def _pc_split(r, B, whier: Sequence[torch.Tensor], alpha_s: float, c: int):
+    """One preconditioner application with the transfers in the kernel's
+    order: the down legs of levels 0 .. c-1, the V-cycle of levels c ..,
+    the up legs of levels c-1 .. 0."""
+    ws = list(whier)
+    alpha = _alpha(alpha_s, r.device)
+    sqf = B * (4.0 * alpha + ws[0])
+    bs = [sqf * r]
+    for l in range(c):
+        bs.append(_down(bs[l], ws[l], alpha, restrict_pointwise))
+    e = _vcycle_pointwise(ws[c:], alpha, bs[c])
+    for l in range(c - 1, -1, -1):
+        e = _up(bs[l], ws[l], e, alpha, prolong_pointwise)
+    return sqf * e
 
 
 def pc_by_plan_reference(r, B, whier: Sequence[torch.Tensor],
                          alpha_s: float):
     """One preconditioner application as the kernel splits it
-    (level_plan): down legs, the bottom of the cycle (the tail or the
-    coarsest sweeps, both the V-cycle of the remaining levels), up legs.
-    The same arithmetic as pc_reference, in the kernel's pieces."""
-    ms, lt = level_plan(int(r.shape[0]))
+    (level_plan): down legs (of the grid kernels, then of the tail's
+    levels across its cluster), the V-cycle of the remaining levels (those
+    of the tail's block 0, or the coarsest sweeps), up legs. The
+    arithmetic of pc_reference in the kernel's pieces and order, which
+    the kernel gives bit for bit."""
+    ms, lt, nb = level_plan(int(r.shape[0]))
     L = len(ms)
-    ws = list(whier)
-    alpha = _alpha(alpha_s, r.device)
-    sqf = B * (4.0 * alpha + ws[0])
-    c = 0 if L == 1 or lt == 0 else min(lt, L - 1)
-    bs = [sqf * r]
-    for l in range(c):
-        bs.append(down_reference(bs[l], ws[l], alpha_s))
-    e = vcycle(ws[c:], alpha, bs[c], 1, OMEGA, COARSE_SWEEPS)
-    for l in range(c - 1, -1, -1):
-        e = up_reference(bs[l], ws[l], e, alpha_s)
-    return sqf * e
+    c = L - 1 if lt == L else lt + cluster_levels(ms[lt:], nb)
+    return _pc_split(r, B, whier, alpha_s, c)
 
 
 def fused_mg_pcg_reference(b, B, C, whier: Sequence[torch.Tensor],
@@ -265,8 +390,8 @@ def _lib() -> ctypes.CDLL:
         pI = ctypes.POINTER(ctypes.c_int)
         for name, res, args in (
                 ("mgf_error_string", ctypes.c_char_p, [I]),
-                ("mgf_ws_floats", LL, [I, I]),
-                ("mgf_ws_create", P, [I, I, P, P, pI]),
+                ("mgf_ws_floats", LL, [I, I, I]),
+                ("mgf_ws_create", P, [I, I, I, P, P, pI]),
                 ("mgf_ws_offset", LL, [P, I]),
                 ("mgf_ws_destroy", None, [P]),
                 ("mgf_capture", P, [P, I, I, pI]),
@@ -296,19 +421,20 @@ def _graph_key(chunk: int, first: bool) -> Tuple[int, bool]:
 
 class _Workspace:
     """The kernel's device buffers for one m (with the tail from level
-    lt, level_plan), and the chunk graphs captured over them (one per _graph_key). Every pointer a
-    captured kernel sees stays fixed, so a graph serves every solve."""
+    lt on a cluster of nb blocks, level_plan), and the chunk graphs
+    captured over them (one per _graph_key). Every pointer a captured
+    kernel sees stays fixed, so a graph serves every solve."""
 
-    def __init__(self, lib, m: int, lt: int, dev):
-        nf = int(lib.mgf_ws_floats(m, lt))
+    def __init__(self, lib, m: int, lt: int, nb: int, dev):
+        nf = int(lib.mgf_ws_floats(m, lt, nb))
         if nf < 0:
             raise ValueError(f"no workspace for m={m} with the tail at "
-                             f"level {lt}")
-        self.lib, self.m = lib, m
+                             f"level {lt} on {nb} blocks")
+        self.lib, self.m, self.nb = lib, m, nb
         self.buf = torch.zeros(nf, dtype=torch.float32, device=dev)
         self.cnt = torch.zeros(2, dtype=torch.int32, device=dev)
         err = ctypes.c_int(0)
-        handle = lib.mgf_ws_create(m, lt, self.buf.data_ptr(),
+        handle = lib.mgf_ws_create(m, lt, nb, self.buf.data_ptr(),
                                    self.cnt.data_ptr(), ctypes.byref(err))
         _raise_on(err.value, "mgf_ws_create", lib)
         if not handle:
@@ -388,7 +514,8 @@ def _workspace(m: int, dev) -> _Workspace:
     solve and kernel_pc call there (not reentrant: one at a time)."""
     key = (dev, m)
     if key not in _workspaces:
-        _workspaces[key] = _Workspace(_lib(), m, level_plan(m)[1], dev)
+        _, lt, nb = level_plan(m)
+        _workspaces[key] = _Workspace(_lib(), m, lt, nb, dev)
     return _workspaces[key]
 
 
@@ -408,6 +535,8 @@ def _kernel_solve(b, B, C, whier, alpha_s, tol, maxiter, chunk):
         count("host_reads")
         it, live = ws.sc[[_SC_IT, _SC_LIVE]].tolist()
         if live < 0.5:
+            if ws.nb > 1:
+                count("mgpcg.cluster_tail_its", int(it))
             return ws.XB.clone().view(m, m), int(it)
 
 

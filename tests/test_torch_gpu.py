@@ -37,12 +37,13 @@ def _rel(a, ref):
 
 
 # Every split of the V-cycle (mgfused.level_plan): all levels in the
-# one-block tail (12, 17, 33, 35, 65), one level too large for it and
-# swept by grid kernels (100), grid levels above the tail (129, 257,
-# 1025), grid levels above a coarsest level swept by grid kernels (67:
-# levels 67, 34; 131: levels 131, 66)
+# one-block tail (12, 17, 33, 35, 65), a grid level above a one-block
+# tail (67: levels 67, 34), one level too large for the tail and swept by
+# grid kernels (100), a grid level above a coarsest level swept by grid
+# kernels (131: levels 131, 66), all levels in the cluster tail (129,
+# 257), grid levels above it (513, 1025)
 @pytest.mark.parametrize("m", [12, 17, 33, 35, 65, 67, 100, 129, 131, 257,
-                               1025])
+                               513, 1025])
 def test_kernel_matches_plain(cuda, m):
     alpha, b, B, C, whier = grids_on(cuda, m, 0)
     assert _rel(mgfused.kernel_matvec(b, B, C, alpha),
@@ -78,6 +79,51 @@ def test_kernel_matches_plain(cuda, m):
     assert i0 == 0 and float(x0.abs().max()) == 0.0
     _, i7 = mgfused.solve(b, B, C, whier, alpha, 1e-30, 7, chunk=3)
     assert i7 == 7
+
+
+@pytest.mark.parametrize("m", [129, 1025])
+def test_kernel_pc_is_the_plan_bit_for_bit(cuda, m):
+    """The kernel's preconditioner, the cluster tail at its bottom, gives
+    the bits of its plain version split as planned: every pass of the
+    tail is pointwise, in the plain version's order."""
+    alpha, b, B, C, whier = grids_on(cuda, m, 0)
+    assert mgfused.level_plan(m)[2] > 1
+    assert torch.equal(mgfused.kernel_pc(b, B, whier, alpha),
+                       mgfused.pc_by_plan_reference(b, B, whier, alpha))
+
+
+def test_level_plan_is_the_kernels_split(cuda):
+    """level_plan's copy of the tail's shape arithmetic (tail_bytes,
+    cluster_levels) decides as the kernel library does: at every m up to
+    4099 the library takes the planned split, and from every level of at
+    most 257 it takes a tail on a cluster of 8 or 16 blocks exactly where
+    the copy finds one that fits."""
+    lib = mgfused._lib()
+    for m in range(3, 4100):
+        ms, lt, nb = mgfused.level_plan(m)
+        assert lib.mgf_ws_floats(m, lt, nb) >= 0, m
+        for l, top in enumerate(ms):
+            if top > 257:
+                continue
+            tail = ms[l:]
+            for nb in (8, 16):
+                fits = (0 < mgfused.cluster_levels(tail, nb) < len(tail)
+                        and mgfused.tail_bytes(tail, nb) <= mgfused.MAX_SMEM)
+                assert (lib.mgf_ws_floats(m, l, nb) >= 0) == fits, (m, l, nb)
+
+
+def test_cluster_tail_counter_counts_its_iterations(cuda):
+    """Under tracing, a solve with the cluster tail (m = 1025) adds its CG
+    iterations to mgpcg.cluster_tail_its, one with the one-block tail
+    (m = 65) adds none."""
+    from proximalgalerkin_torch.core.logging import counter, tracing
+    for m, cluster in ((1025, True), (65, False)):
+        alpha, b, B, C, whier = grids_on(cuda, m, 0)
+        with tracing():
+            before = counter("mgpcg.cluster_tail_its")
+            _, its = mgfused.solve(b, B, C, whier, alpha, 1e-6, 500)
+            added = counter("mgpcg.cluster_tail_its") - before
+        assert its > 0 and added == (its if cluster else 0)
 
 
 @pytest.mark.parametrize("m", [33, 257])
