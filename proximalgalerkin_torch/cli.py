@@ -2,7 +2,8 @@
 
     python -m proximalgalerkin_torch [--opt KEY=VALUE ...] <subcommand>
 
-    obstacle [-p 1|2] [--alpha-scheme S] [--disk-res R] [--output-dir DIR]
+    obstacle [-p 1|2] [--alpha-scheme S] [--disk-res R] [--rectangle N]
+        [--output-dir DIR] [--n-devices N [--pc jacobi|btlu]]
     obstacle-fd [-N 65]
     obstacle-spectral [--degrees 8 16 ...] [--solve-dtype f64|f32_refine]
     compare-all [--disk-res 0.1] [--max-iter 500] [--tol 1e-4]
@@ -37,6 +38,11 @@ gradient-constraint through the lattice-multigrid Schur preconditioner.
 subdomains (parallel/dofpart.py), all of them in this process on
 --device: the reference's multi-device paths, with the subdomains on the
 shard axis of one card (NCCL takes one card a process, parallel/comm.py).
+The distributed obstacle's direction is `--pc jacobi` (the default, the
+reference CLI's Jacobi-preconditioned MINRES) or `--pc btlu` (restricted
+additive Schwarz with a block-tridiagonal subdomain factor under
+GMRES(120), f64, relative tolerance 1e-11); `--rectangle N` solves on
+the N x N right-diagonal mesh of [-1, 1]^2 in place of the disk.
 
 `bench` runs one of the reference bench's workers in this process and
 prints one JSON line with that worker's keys, diagnostics on stderr:
@@ -235,6 +241,18 @@ def run_bench_stream(n_elems: int, device: str, esz: int = 4,
             "stream_gbps_indep": round(indep, 1)}
 
 
+# the distributed obstacle's Newton options by --pc: the reference CLI's
+# Jacobi MINRES, and asm_btlu under GMRES(120) (parallel/dofpart.py
+# _fused_options maps pc_type btlu to it)
+DISTRIBUTED_DIRECTIONS = {
+    "jacobi": {"ksp_type": "minres", "pc_type": "jacobi",
+               "ksp_rtol": 1e-11, "ksp_max_it": 4000},
+    "btlu": {"ksp_type": "preonly", "pc_type": "btlu",
+             "pc_factor_dtype": "f64", "ksp_gmres_restart": 120,
+             "ksp_rtol": 1e-11, "ksp_max_it": 600},
+}
+
+
 def _add_obstacle(sub):
     p = sub.add_parser("obstacle", help="Example 01: LVPP obstacle problem")
     p.add_argument("--polynomial_order", "-p", type=int, default=1,
@@ -248,12 +266,22 @@ def _add_obstacle(sub):
     p.add_argument("--tol", "-t", dest="tol_exit", type=float, default=1e-6)
     p.add_argument("--disk-res", type=float, default=0.1,
                    help="disk mesh resolution (replaces --file-path)")
+    p.add_argument("--rectangle", type=int, default=0, metavar="N",
+                   help="solve on the N x N right-diagonal mesh of "
+                        "[-1, 1]^2 in place of the disk (0 = the disk)")
     p.add_argument("--refinements", type=int, default=0)
     p.add_argument("--output-dir", type=Path, default=Path("output"))
     p.add_argument("--n-devices", dest="n_devices", type=int, default=0,
                    help="run the dof-partitioned distributed LVPP path over "
                         "this many subdomains, all on --device (0 = "
                         "single-device)")
+    p.add_argument("--pc", choices=sorted(DISTRIBUTED_DIRECTIONS),
+                   default="jacobi",
+                   help="the distributed Newton direction (with "
+                        "--n-devices): jacobi, MINRES with a Jacobi "
+                        "preconditioner (default); btlu, restricted "
+                        "additive Schwarz with a block-tridiagonal "
+                        "subdomain factor under GMRES(120)")
     _add_device(p)
 
 
@@ -265,9 +293,12 @@ def _add_device(p):
 
 def _run_obstacle(args):
     from .io import write_vtu
+    from .mesh import rectangle_mesh
     from .mesh.unstructured import create_disk_mesh, refine_uniform
     from .models.obstacle import solve_obstacle_problem
-    mesh = create_disk_mesh(args.disk_res)
+    mesh = (rectangle_mesh(args.rectangle, args.rectangle, p0=(-1.0, -1.0),
+                           p1=(1.0, 1.0)) if args.rectangle
+            else create_disk_mesh(args.disk_res))
     for _ in range(args.refinements):
         mesh = refine_uniform(mesh)
     if args.n_devices:
@@ -296,8 +327,8 @@ def _run_obstacle(args):
 def _run_obstacle_distributed(args, mesh):
     """Obstacle LVPP on the dof-partitioned path over args.n_devices
     subdomains on --device, driven by the full LVPPSolver (the
-    reference CLI's distributed obstacle, its options and printed
-    line)."""
+    reference CLI's distributed obstacle, its options and printed line;
+    the direction by --pc)."""
     import numpy as np
     from .models.obstacle import setup_obstacle_problem
     from .parallel.dofpart import DistributedLvppProblem, DistributedProblem
@@ -314,8 +345,7 @@ def _run_obstacle_distributed(args, mesh):
         dlp,
         newton_options={"snes_rtol": 1e-6, "snes_max_it": 50,
                         "snes_linesearch_type": "none",
-                        "ksp_type": "minres", "pc_type": "jacobi",
-                        "ksp_rtol": 1e-11, "ksp_max_it": 4000},
+                        **DISTRIBUTED_DIRECTIONS[args.pc]},
         alpha=AlphaScheduler(scheme=args.alpha_scheme
                              if args.alpha_scheme != "constant"
                              else "double_exponential",

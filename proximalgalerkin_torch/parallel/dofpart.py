@@ -31,7 +31,15 @@ Design (the reference's, on the shard axis of parallel/comm.py):
     differentiates through a collective.
   * Newton and Krylov loops read the host once per Newton step and once
     per chunk of Krylov iterations (la/loop.while_loop); GMRES once per
-    chunk of Arnoldi steps and once per restart cycle.
+    Arnoldi step and once per restart cycle.
+  * Spans and counters (core/logging): `newton.solve` a distributed
+    Newton solve; in it `dist.asm_factor` a Newton step's Schwarz
+    factor (its element matrices, block scatter, factor and the apply's
+    graph capture) and `dist.gmres` a Krylov solve, holding
+    `dist.jac_action` and `dist.asm_apply` for each action and apply;
+    counters `dist.gmres_its` (Arnoldi steps), `dist.graph_captures`
+    and `host_reads`. Spans sit at the call sites of the replayed
+    operators, never inside a function a graph captures.
 
 Host setup (partition, rewritten gathers, BC masks, io maps) is plain
 numpy, copied from the reference and bit-identical to it.
@@ -46,6 +54,7 @@ import numpy as np
 import torch
 from torch.func import jvp, vmap
 
+from ..core.logging import PhaseTimer, count, rank_print, span
 from ..la.blocktri import bt_apply, bt_factor
 from ..la.loop import while_loop
 from .comm import ShardComm
@@ -587,9 +596,11 @@ class DistributedProblem:
         graph on a CUDA device with the subdomains in one process: the
         hundreds of small kernels of an action through torch.func launch
         as one replay on a static copy of the argument. The kernels are
-        those of fn, so the result is fn's. Elsewhere fn itself."""
+        those of fn, so the result is fn's. Elsewhere fn itself. Each
+        capture counts one `dist.graph_captures`."""
         if not (like.is_cuda and self.comm.world == 1):
             return fn
+        count("dist.graph_captures")
         static_in = like.clone()
         side = torch.cuda.Stream(like.device)
         side.wait_stream(torch.cuda.current_stream(like.device))
@@ -739,7 +750,11 @@ class DistributedProblem:
         the (m+1)-long Hessenberg column comes to the host once an Arnoldi
         step, where the Givens rotations, the residual estimate and the
         stopping test run in f64 numpy, in the reference's order of
-        operations. A step starts only while the column residual exceeds
+        operations. Each Jacobian action is the span `dist.jac_action`,
+        each preconditioner apply `dist.asm_apply`; each Arnoldi step
+        counts one `dist.gmres_its`, and every blocking read of the host
+        (the target, a cycle's residual norm, each column) one
+        `host_reads`. A step starts only while the column residual exceeds
         the target and the global count is below maxiter, PETSc's
         per-iteration cap. Returns the solution; `self.last_krylov_its`
         holds the iteration count."""
@@ -748,11 +763,22 @@ class DistributedProblem:
         eps = 1e-300
         pdot = self._pdot
         dt, dev = b.dtype, b.device
+
+        def act(v):
+            with span("dist.jac_action"):
+                return Av(v)
+
+        def precondition(v):
+            with span("dist.asm_apply"):
+                return self._apply_pc(Minv, v)
+
+        count("host_reads")
         target = max(float(rtol) * float(np.sqrt(max(float(pdot(b, b)),
                                                       0.0))), float(atol))
 
         def cycle(x0, it0):
-            r = b - Av(x0)
+            r = b - act(x0)
+            count("host_reads")
             beta = float(np.sqrt(max(float(pdot(r, r)), 0.0)))
             V = torch.zeros((m + 1,) + tuple(b.shape), dtype=dt, device=dev)
             V[0] = r / max(beta, eps)
@@ -762,11 +788,13 @@ class DistributedProblem:
             cs, sn = np.zeros(m), np.zeros(m)
             j = 0
             while j < m and abs(g[j]) > target and it0 + j < maxiter:
-                w = Av(self._apply_pc(Minv, V[j]))
+                w = act(precondition(V[j]))
                 h = self.comm.psum((V * w).sum(-1).T)            # (m+1,)
                 w = w - torch.einsum("k,k...->...", h, V)
                 hj1_t = torch.sqrt(torch.clamp(pdot(w, w), min=0.0))
                 V[j + 1] = w / torch.clamp(hj1_t, min=eps)
+                count("dist.gmres_its")
+                count("host_reads")
                 hcol = torch.cat([h, hj1_t[None]]).cpu().numpy()
                 hj1 = hcol[-1]
                 hcol = hcol[:m + 1].copy()
@@ -792,7 +820,7 @@ class DistributedProblem:
             y = sla.solve_triangular(R, g_solve, lower=False)
             z = torch.einsum("k,k...->...", torch.as_tensor(
                 y, dtype=dt, device=dev), V[:m])
-            return x0 + self._apply_pc(Minv, z), abs(g[j]), j
+            return x0 + precondition(z), abs(g[j]), j
 
         x = torch.zeros_like(b)
         it = 0
@@ -1262,9 +1290,12 @@ class DistributedProblem:
                 it, x, F, fn_, _ = s
                 Av = self._jac_operator(x, cl, fcl, consts_, bcm)
                 if pc == "asm_lu":
-                    Minv = self._asm_lu_pc(x, cl, consts_)
+                    with span("dist.asm_factor"):
+                        Minv = self._asm_lu_pc(x, cl, consts_)
                 elif pc == "asm_btlu":
-                    Minv = self._asm_btlu_pc(x, cl, consts_, factor_dtype)
+                    with span("dist.asm_factor"):
+                        Minv = self._asm_btlu_pc(x, cl, consts_,
+                                                 factor_dtype)
                 elif pc == "schur":
                     d = self._local_diagonal(x, cl, fcl, consts_, bcm)
                     Minv = self._schur_pc_matfree(
@@ -1279,8 +1310,9 @@ class DistributedProblem:
                     # preconditioned indefinite LVPP saddle (the
                     # reference's measurement); restart 120 recovers the
                     # exact-direction trajectory
-                    dx = self._gmres(Av, -F, Minv, ksp_rtol, ksp_atol,
-                                     ksp_max_it, restart=gmres_restart)
+                    with span("dist.gmres"):
+                        dx = self._gmres(Av, -F, Minv, ksp_rtol, ksp_atol,
+                                         ksp_max_it, restart=gmres_restart)
                     fn.krylov_its += self.last_krylov_its
                 else:
                     solver = self._minres if ksp == "minres" else self._cg
@@ -1375,7 +1407,6 @@ class DistributedNewtonSolver:
     def __init__(self, problem: DistributedLvppProblem, options=None,
                  timer=None):
         from ..core.config import SolverOptions
-        from ..core.logging import PhaseTimer
         self.problem = problem
         self.options = options if isinstance(options, SolverOptions) \
             else SolverOptions(options or {})
@@ -1383,7 +1414,12 @@ class DistributedNewtonSolver:
         self.krylov_its = []
 
     def solve(self, x_shard):
-        from ..core.logging import rank_print
+        """One distributed Newton solve from x_shard, inside the span
+        `newton.solve` (as NewtonSolver.solve)."""
+        with span("newton.solve"):
+            return self._solve(x_shard)
+
+    def _solve(self, x_shard):
         from ..core.reasons import ConvergedReason, NotConvergedError
         from ..solve.newton import NewtonResult
         opts = self.options
@@ -1409,6 +1445,7 @@ class DistributedNewtonSolver:
                 ksp_rtol=float(opts.opt("ksp_rtol")),
                 ksp_atol=float(opts.opt("ksp_atol")),
                 damping=float(opts.opt("snes_linesearch_damping")))
+            count("host_reads")
             it, fn, f0, ls_ok = torch.stack(
                 [it.to(f0.dtype), fn, f0, ls_ok.to(f0.dtype)]).tolist()
         if fused.krylov_its is not None:

@@ -304,3 +304,23 @@ def test_cli_obstacle(tmp_path, capsys):
     last = capsys.readouterr().out.strip().splitlines()[-1]
     assert last == ref_last
     assert last.startswith("[distributed x8] LVPP iterations: 3 ")
+
+
+@pytest.mark.parametrize("mesh", [["--disk-res", "0.3"],
+                                  ["--rectangle", "16"]])
+def test_cli_obstacle_distributed_btlu(mesh, tmp_path, capsys):
+    """`obstacle --n-devices 8 --pc btlu`: restricted additive Schwarz
+    with a block-tridiagonal subdomain factor under GMRES(120), whose
+    exact-enough directions give the single-device host-LU run's counts
+    (the first LVPP step, on the test above's disk and on the 16^2
+    rectangle of [-1, 1]^2, the benchmark's distributed mesh cut)."""
+    from proximalgalerkin_torch.cli import main
+    argv = ["obstacle", *mesh, "--alpha-scheme", "double_exponential",
+            "--alpha-max", "1e2", "--max-iter", "1",
+            "--output-dir", str(tmp_path), "--device", "cpu"]
+    main(argv)
+    host = capsys.readouterr().out.strip().splitlines()[-1]
+    assert host.startswith("LVPP iterations: 1  Newton total: ")
+    main(argv + ["--n-devices", "8", "--pc", "btlu"])
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    assert last.startswith("[distributed x8] " + host + "  converged: ")

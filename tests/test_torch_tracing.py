@@ -2,8 +2,9 @@
 a span costs a flag test and synchronises nothing; under torch.profiler
 spans nest, share their root's solve id and sit on the profiler's clock;
 counters reach the open span only while tracing is on; a CUDA graph
-capture records nothing; the fast path and the general stack record the
-spans and host reads that the benchmark's per-layer metrics read."""
+capture records nothing; the fast path, the general stack and the
+distributed layer record the spans and host reads that the benchmark's
+per-layer metrics read."""
 
 import math
 
@@ -275,3 +276,68 @@ def test_general_stack_records_element_matrices(direction):
                                             for s in group)
     else:
         assert applies == [] and passes == 0
+
+
+def test_distributed_solve_records_its_layer():
+    """The benchmark's distributed cell at 16^2 on the CPU (8 subdomains,
+    asm_btlu under GMRES(120)), its first Newton step: traced, the
+    Newton solve, the Schwarz factor (with its element matrices), the
+    GMRES solve and its actions and applies nest under `lvpp.solve`;
+    `dist.gmres_its` is the solver's GMRES count, and the GMRES reads
+    the host once an Arnoldi step, once a restart cycle and once for its
+    target; no graph is captured off the card. Untraced, no span is
+    kept and the counters still count."""
+    from pathlib import Path
+
+    from pgbench import harness, inputs
+    root = Path(__file__).resolve().parents[1]
+    cell = harness.load_cell(root, "obstacle_dist_224.asm_btlu")
+    cell.config["n"] = 16
+    inp = inputs.make(cell.config, cell.workload["params"], 11)
+    driver = cell.driver()
+    state = driver.setup(cell.config, cell.workload, inp,
+                         torch.device("cpu"))
+    newton = state.solver.newton
+    newton.options["snes_max_it"] = 1
+    restart = int(newton.options["ksp_gmres_restart"])
+    captures = counter("dist.graph_captures")
+    with tracing():
+        driver.solve(state)
+    its = newton.krylov_its[-1]
+    group = _root("lvpp.solve")
+    by_index = {s.index: s for s in group}
+
+    def chain(s):
+        out = []
+        while s.parent >= 0:
+            s = by_index[s.parent]
+            out.append(s.name)
+        return out
+
+    names = [s.name for s in group]
+    for name in ("newton.solve", "dist.asm_factor", "dist.gmres"):
+        assert names.count(name) == 1, (name, names)
+    (factor,) = [s for s in group if s.name == "dist.asm_factor"]
+    (gmres,) = [s for s in group if s.name == "dist.gmres"]
+    assert chain(factor) == chain(gmres) == [
+        "newton_fused_distributed", "newton.solve", "lvpp.step",
+        "lvpp.solve"]
+    em = [s for s in group if s.name == "element_matrices"]
+    assert em and all(chain(s)[0] == "dist.asm_factor" for s in em)
+    cycles = -(-its // restart)
+    actions = [s for s in group if s.name == "dist.jac_action"]
+    applies = [s for s in group if s.name == "dist.asm_apply"]
+    # an action an Arnoldi step and one a cycle's residual; an apply an
+    # Arnoldi step and one a cycle's update
+    assert len(actions) == len(applies) == its + cycles
+    assert all(s.parent == gmres.index for s in actions + applies)
+    assert gmres.counts["dist.gmres_its"] == its
+    assert sum(s.counts.get("dist.gmres_its", 0) for s in group) == its
+    assert gmres.counts["host_reads"] == its + cycles + 1
+    assert counter("dist.graph_captures") == captures
+    # untraced: the same counts, nothing kept
+    kept = len(pglog.RECORDER.spans)
+    before = counter("dist.gmres_its")
+    driver.solve(state)
+    assert len(pglog.RECORDER.spans) == kept
+    assert counter("dist.gmres_its") - before == newton.krylov_its[-1]
