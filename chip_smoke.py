@@ -32,8 +32,8 @@
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. the card (nvidia-smi name and power limit, torch and CUDA versions);
-2. build of the CUDA kernels (csrc/mgfused.cu and csrc/dia.cu) from the
-   sources, one nvcc for each, started together;
+2. build of the CUDA kernels (csrc/mgfused.cu, csrc/dia.cu and
+   csrc/ebe.cu) from the sources, one nvcc for each, started together;
 3. the fused MG-PCG kernel against its plain PyTorch version on the card,
    at m = 1025 on a deep-contact Schur state made with numpy from a seed:
    its pieces (matvec step, down and up legs of a level, one V-cycle, the
@@ -177,18 +177,24 @@ Phases, each printing its own lines; any failure exits non-zero:
    relative, the CPU halves in a fifth CpuCases child; (ii) the JAX
    package's distributed records: the 96^2 obstacle with asm_btlu, 3
    LVPP steps (Newton [5, 4, 3], u held to the port's host-LU run
-   within 1e-8, and the ms of one Jacobian action eager and as a CUDA
-   graph and of one exchange), the first LVPP step of the 224^2 obstacle
-   (101,250 dofs; Newton 5; owned dofs, ext_total, nb x bs beside the
-   record's), the distributed fracture at res 0.1 with MINRES on the
-   matrix-free action, its first FRACTURE_DIST_STEPS load steps, and
-   fd_obstacle_solve_sharded(257) on 8 strips, their counts pinned from
-   the JAX package's CPU runs, each with its seconds, the shares of
-   residuals, Jacobian actions, Schwarz factors and applies (DistTally),
-   peak device memory and zero launches of the port's CUDA kernels;
-   (iii) init_multihost on NCCL at world size 1: the disk-0.25 obstacle
-   on 4 subdomains through the process group bit for bit equal to the
-   in-process run;
+   within 1e-8), the first LVPP step of the 224^2 obstacle (101,250
+   dofs; Newton 5; owned dofs, ext_total, nb x bs beside the record's),
+   each with the ms of one Jacobian action (the jvp eager and as a CUDA
+   graph, the element-matrix action as a CUDA graph, with its device
+   operations) and of one exchange, the distributed fracture at res 0.1
+   with MINRES on the matrix-free action, its first FRACTURE_DIST_STEPS
+   load steps, and fd_obstacle_solve_sharded(257) on 8 strips, their
+   counts pinned from the JAX package's CPU runs, each with its seconds,
+   the shares of residuals, Jacobian actions, cell element matrices,
+   Schwarz factors and applies (DistTally), peak device memory and the
+   launches of the port's CUDA kernels (the element-by-element product
+   on the Schwarz paths, none else); (iii) init_multihost on NCCL at
+   world size 1: the disk-0.25 obstacle on 4 subdomains through the
+   process group bit for bit equal to the in-process run; (iv) the
+   element-by-element product kernel (csrc/ebe.cu) against its plain
+   version at the 224^2 cell's shapes (its gathers, 100,352 cells, L =
+   6) and at a vector field's L = 9, within 1e-13 relative, with its
+   device time beside its bound and the plain version's time;
 15. a JSON line of the kernels, then the JSON status line.
 
 Lines starting "--" give the time into the run at which each group of
@@ -518,16 +524,17 @@ def phase_card():
 def phase_build():
     print("== phase 2: build", flush=True)
     from concurrent.futures import ThreadPoolExecutor
-    from proximalgalerkin_torch.ops import dia_spmv, mgfused
+    from proximalgalerkin_torch.ops import dia_spmv, ebe, mgfused
 
     def one(mod):
         t0 = time.time()
         report = mod.build(force=True)
         return time.time() - t0, report
 
-    with ThreadPoolExecutor(2) as ex:
+    with ThreadPoolExecutor(3) as ex:
         futs = {name: ex.submit(one, mod)
-                for name, mod in (("mgfused", mgfused), ("dia", dia_spmv))}
+                for name, mod in (("mgfused", mgfused), ("dia", dia_spmv),
+                                  ("ebe", ebe))}
         done = {name: f.result() for name, f in futs.items()}
     for name, (secs, report) in done.items():
         print(f"build csrc/{name}.cu {secs:.2f} s", flush=True)
@@ -861,19 +868,21 @@ def phase_dia_cg(dev, offsets, data) -> tuple:
 
 
 def reset_counters():
-    from proximalgalerkin_torch.ops import dia_cg, dia_spmv, mgfused
+    from proximalgalerkin_torch.ops import dia_cg, dia_spmv, ebe, mgfused
     mgfused.solve.launches = 0
     dia_spmv.dia_spmv.launches = 0
     dia_cg.solve.launches = 0
     dia_cg.solve.replays = 0
+    ebe.ebe_apply.launches = 0
 
 
 def read_counters() -> dict:
-    from proximalgalerkin_torch.ops import dia_cg, dia_spmv, mgfused
+    from proximalgalerkin_torch.ops import dia_cg, dia_spmv, ebe, mgfused
     return {"fused_mg_pcg": mgfused.solve.launches,
             "dia_spmv": dia_spmv.dia_spmv.launches,
             "dia_cg": dia_cg.solve.launches,
-            "dia_cg_replays": dia_cg.solve.replays}
+            "dia_cg_replays": dia_cg.solve.replays,
+            "ebe": ebe.ebe_apply.launches}
 
 
 def counters_since(before: dict) -> dict:
@@ -2597,12 +2606,14 @@ def phase_dist_cases(dev, cpu=None):
 class DistTally:
     """Synchronised times of the distributed Newton's parts while on
     (monkeypatched onto DistributedProblem): residuals (assembly under
-    torch.func, with their exchanges), Jacobian actions (graph replays,
-    exchanges inside), asm_btlu factors and applies, Jacobi diagonals;
-    the rest of the Newton time is the Krylov vector work and host
-    reads."""
+    torch.func, with their exchanges), Jacobian actions (graph replays of
+    the jvp or of the element-matrix action, exchanges inside), the
+    cells' element matrices of the Schwarz paths, asm_btlu factors and
+    applies, Jacobi diagonals; the rest of the Newton time is the Krylov
+    vector work and host reads."""
 
-    PARTS = ("residual", "jac_action", "pc_factor", "pc_apply", "diagonal")
+    PARTS = ("residual", "jac_action", "cell_matrices", "pc_factor",
+             "pc_apply", "diagonal")
 
     def __init__(self, dev):
         self.dev = dev
@@ -2624,24 +2635,28 @@ class DistTally:
         from proximalgalerkin_torch.parallel import dofpart
         DP = dofpart.DistributedProblem
         self.saved = {n: getattr(DP, n) for n in (
-            "_local_residual", "_jac_operator", "_asm_btlu_pc",
-            "_local_diagonal")}
+            "_local_residual", "_jac_operator", "_ebe_operator",
+            "_cell_matrices", "_asm_btlu_pc", "_local_diagonal")}
         tally = self
         DP._local_residual = self._timed("residual",
                                          self.saved["_local_residual"])
         DP._local_diagonal = self._timed("diagonal",
                                          self.saved["_local_diagonal"])
+        DP._cell_matrices = self._timed("cell_matrices",
+                                        self.saved["_cell_matrices"])
 
-        def jac_operator(dp, *a):
-            return tally._timed("jac_action",
-                                tally.saved["_jac_operator"](dp, *a))
+        def operator(name):
+            def make(dp, *a):
+                return tally._timed("jac_action", tally.saved[name](dp, *a))
+            return make
 
-        def asm_btlu_pc(dp, *a):
+        def asm_btlu_pc(dp, *a, **k):
             Minv = tally._timed("pc_factor",
-                                tally.saved["_asm_btlu_pc"])(dp, *a)
+                                tally.saved["_asm_btlu_pc"])(dp, *a, **k)
             return tally._timed("pc_apply", Minv)
 
-        DP._jac_operator = jac_operator
+        DP._jac_operator = operator("_jac_operator")
+        DP._ebe_operator = operator("_ebe_operator")
         DP._asm_btlu_pc = asm_btlu_pc
         return self
 
@@ -2659,10 +2674,13 @@ class DistTally:
                                   f"{100 * rest / secs:.1f}% ({rest:.2f} s)"])
 
 
-def dist_record(dev, title, run, counts_of, pinned, checks_of, tally=True):
+def dist_record(dev, title, run, counts_of, pinned, checks_of, tally=True,
+                ebe=False):
     """One record of phase 14 (ii): run(timer) on dev, its counts held to
     `pinned` and its checks, with its seconds, the tally's shares, peak
-    device memory and launches of the port's kernels (none)."""
+    device memory and launches of the port's kernels (the
+    element-by-element product where `ebe`, a Schwarz path's, none
+    else)."""
     t = DistTally(dev)
     if tally:
         with t:
@@ -2678,8 +2696,11 @@ def dist_record(dev, title, run, counts_of, pinned, checks_of, tally=True):
     for what, ok in checks_of(r):
         print(f"  {what}: {ok}", flush=True)
         check(ok, f"{title}: {what}")
-    check(all(v == 0 for v in launches.values()),
-          f"{title} launches none of the port's kernels")
+    check(all(v == 0 for k, v in launches.items() if k != "ebe"),
+          f"{title} launches none of the port's other kernels")
+    check((launches["ebe"] > 0) == ebe,
+          f"{title} launches the element-by-element product: {ebe}")
+    dist_record.launches = launches
     return r
 
 
@@ -2724,7 +2745,7 @@ def dist_obstacle_record(dev, n: int, steps: int, host_ref: bool):
     r = dist_record(
         dev, f"distributed obstacle {n}^2 ({N:,} dofs), 8 subdomains, "
         f"asm_btlu GMRES(120), {steps} LVPP steps", run,
-        lambda r: {"newton": r.newton_steps}, pinned, checks)
+        lambda r: {"newton": r.newton_steps}, pinned, checks, ebe=True)
     its = nwt[0].krylov_its
     print(f"  GMRES iterations an LVPP step {its}; per-subdomain owned "
           f"dofs {dp.Bsum} (record {DIST_224_RECORD['per_device_owned']} at "
@@ -2733,16 +2754,18 @@ def dist_obstacle_record(dev, n: int, steps: int, host_ref: bool):
           f"{abt['bs']} (record {DIST_224_RECORD['nb_bs']}), factor "
           f"{dp.asm_btlu_factor_bytes() / 2**20:.1f} MiB a subdomain, "
           f"blocking set-up {setup_s:.1f} s", flush=True)
-    if host_ref:
-        dist_action_timings(dev, prob, dp)
+    dist_action_timings(dev, prob, dp)
     return dp, abt
 
 
 def dist_action_timings(dev, prob, dp):
     """ms of one Jacobian action on dp's subdomains (at the LVPP start
-    state, alpha 1) eager and replayed as a CUDA graph, and of one
-    exchange pair (forward ghost gather + reverse fold): per_call_ms, CUDA
-    events around 10 calls."""
+    state, alpha 1): the jvp eager and replayed as a CUDA graph, the
+    element-matrix action of the Schwarz paths replayed as a CUDA graph
+    (held to the jvp within 1e-13 relative), and of one exchange pair
+    (forward ghost gather + reverse fold): per_call_ms, CUDA events
+    around 10 calls; and the device operations of one replay of each
+    graph (torch.profiler over 5)."""
     N = prob.space.num_dofs
     coeffs = dp._prep_coeffs({
         "phi": dp.scatter_cellq(prob.problem.coeffs["phi"]),
@@ -2753,17 +2776,40 @@ def dist_action_timings(dev, prob, dp):
     consts = {"alpha": torch.tensor(1.0, dtype=torch.float64, device=dev)}
     x = dp.scatter(np.zeros(N))
     v = dp.scatter(np.random.default_rng(SEED).standard_normal(N))
-    out = {}
-    for name, make in (("eager", dp._jac_action),
-                       ("graph", dp._jac_operator)):
-        Av = make(x, coeffs, {}, consts, dp.bc_mask)
-        out[name] = per_call_ms(lambda: Av(v), calls=10)
+    Ae = dp._cell_matrices(x, coeffs, consts)
+    ops = {"graph": dp._jac_operator(x, coeffs, {}, consts, dp.bc_mask),
+           "eager": dp._jac_action(x, coeffs, {}, consts, dp.bc_mask),
+           "ebe_graph": dp._ebe_operator(x, Ae, {}, consts, dp.bc_mask)}
+    err = rel_max(ops["ebe_graph"](v), ops["eager"](v))
+    out = {name: per_call_ms(lambda: Av(v), calls=10)
+           for name, Av in ops.items()}
     out["exchange"] = per_call_ms(
         lambda: dp._reverse_fold(dp._forward_ext(v)), calls=10)
-    print(f"  one Jacobian action: eager {out['eager']:.3f} ms, CUDA graph "
-          f"{out['graph']:.3f} ms; one exchange pair {out['exchange']:.3f} "
-          "ms", flush=True)
+    nops = {name: device_ops(lambda: ops[name](v))
+            for name in ("graph", "ebe_graph")}
+    print(f"  one Jacobian action: jvp eager {out['eager']:.3f} ms, jvp "
+          f"CUDA graph {out['graph']:.3f} ms ({nops['graph']} device "
+          f"operations), element matrices CUDA graph "
+          f"{out['ebe_graph']:.3f} ms ({nops['ebe_graph']} device "
+          f"operations; max rel diff from the jvp {err:.2e}); one "
+          f"exchange pair {out['exchange']:.3f} ms", flush=True)
+    check(err <= 1e-13, "element-matrix action within 1e-13 of the jvp")
     return out
+
+
+def device_ops(fn, calls: int = 5) -> float:
+    """Device operations (kernels, copies, fills) per call of fn, from
+    torch.profiler over `calls` calls after a warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    return n / calls
 
 
 def fracture_dist_record(dev, steps: int):
@@ -2854,16 +2900,20 @@ def phase_multiprocess(dev):
               "process)", flush=True)
 
 
-def phase_distributed(dev):
-    """Phase 14 (ii)-(iv)."""
+def phase_distributed(dev) -> dict:
+    """Phase 14 (ii)-(iv); returns the element-by-element kernel's
+    timing with its launches in the 224^2 record."""
     print("== phase 14 (ii): the distributed records", flush=True)
     t0 = time.perf_counter()
     dist_obstacle_record(dev, 96, 3, host_ref=True)
     print(f"-- 96^2 record {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    dist_obstacle_record(dev, 224, 1, host_ref=False)
+    dp, _ = dist_obstacle_record(dev, 224, 1, host_ref=False)
+    launches = dist_record.launches["ebe"]
     print(f"-- 224^2 first step {time.perf_counter() - t0:.1f} s",
           flush=True)
+    timing = phase_ebe(dev, dp._ebe_index()[0], dp.nloc * dp.ext_total)
+    del dp
     t0 = time.perf_counter()
     fracture_dist_record(dev, FRACTURE_DIST_STEPS)
     print(f"-- fracture {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2871,6 +2921,66 @@ def phase_distributed(dev):
     halo_record(dev, 257, REFERENCE_COUNTS["halo_257"])
     print(f"-- halo 257 {time.perf_counter() - t0:.1f} s", flush=True)
     phase_multiprocess(dev)
+    return dict(timing, launches=launches)
+
+
+def ebe_system(dev, ne: int, L: int, n: int, seed: int, gidx=None):
+    """An element-by-element product's inputs on dev: A (ne, L, L) and x
+    (n,) standard normal from seed, gidx (ne, L) int32 given or uniform
+    in [0, n)."""
+    rng = np.random.default_rng(seed)
+    A = torch.as_tensor(rng.standard_normal((ne, L, L)), device=dev)
+    if gidx is None:
+        gidx = torch.as_tensor(rng.integers(0, n, (ne, L)),
+                               dtype=torch.int32, device=dev)
+    x = torch.as_tensor(rng.standard_normal(n), device=dev)
+    return A, gidx, x
+
+
+def ebe_bytes(ne: int, L: int, n: int) -> int:
+    """What an element-by-element product reads and writes once: A, the
+    int32 gathers, x, y."""
+    return ne * L * L * 8 + ne * L * 4 + 2 * n * 8
+
+
+def phase_ebe(dev, gidx, n: int) -> dict:
+    """Phase 14 (iv): the element-by-element product kernel against its
+    plain version at the 224^2 cell's shapes (gidx, n: its cells'
+    gathers and stacked extended vectors, random A and x) and at a vector
+    field's L = 9 (random gathers), within 1e-13 relative (the kernel
+    adds a row's sum with an atomic, in no fixed order); the kernel's
+    device time a launch (torch.profiler over 50) beside its bound and
+    the plain version's time a call (CUDA events). Returns the cell
+    shape's timing."""
+    print("== phase 14 (iv): the element-by-element product kernel against "
+          "its plain version", flush=True)
+    from proximalgalerkin_torch.ops.ebe import ebe_apply, ebe_apply_reference
+    timing = {}
+    ne, L = (int(d) for d in gidx.shape)
+    for label, (A, g, x) in (
+            ("224^2 cell", ebe_system(dev, ne, L, n, SEED + 7, gidx)),
+            ("vector field", ebe_system(dev, 50_000, 9, 150_000,
+                                        SEED + 8))):
+        ne_, L_, n_ = int(A.shape[0]), int(A.shape[1]), int(x.shape[0])
+        yk, yp = ebe_apply(A, g, x, n_), ebe_apply_reference(A, g, x, n_)
+        err = rel_max(yk, yp)
+        ms_k = device_ms(lambda: ebe_apply(A, g, x, n_),
+                         ["k_ebe_apply"])["k_ebe_apply"]
+        call_k = per_call_ms(lambda: ebe_apply(A, g, x, n_))
+        ms_p = per_call_ms(lambda: ebe_apply_reference(A, g, x, n_))
+        nbytes = ebe_bytes(ne_, L_, n_)
+        bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        print(f"ebe {label} ne={ne_} L={L_} n={n_}: max rel diff {err:.3e} "
+              f"(bound 1e-13); kernel {ms_k:.4f} ms device ({call_k:.4f} ms "
+              f"per call with y's zero fill), plain {ms_p:.4f} ms per call "
+              f"(median of 3 runs of 50); bound {bound_ms:.4f} ms "
+              f"({nbytes / 1e6:.1f} MB at 3.35 TB/s), "
+              f"{100 * bound_ms / ms_k:.1f}% of it", flush=True)
+        check(err <= 1e-13, f"ebe {label}")
+        if not timing:
+            timing = {"max_rel_err": err, "ms": ms_k, "plain_ms": ms_p,
+                      "bound_ms": bound_ms, "bound_by": "bytes"}
+    return timing
 
 
 BTLU_LABEL = "gradient 12^2 P2 btlu "
@@ -3470,8 +3580,8 @@ def main():
         stamp("phase 12 (ii)-(iv)")
         phase_contact(dev, fd_res)
         stamp("phase 13 (ii)-(iv)")
-        phase_distributed(dev)
-        stamp("phase 14 (ii)-(iii)")
+        t_ebe = phase_distributed(dev)
+        stamp("phase 14 (ii)-(iv)")
     print(f"smoke run {time.perf_counter() - T_START:.1f} s", flush=True)
 
     def entry(name, source, replaces, launches, timing, **extra):
@@ -3479,6 +3589,8 @@ def main():
                     source=f"proximalgalerkin_torch/csrc/{source}",
                     replaces=f"{replaces} (JAX reference package)",
                     launches=launches, **timing, **extra)
+
+    ebe_launches = t_ebe.pop("launches")
 
     print(json.dumps({"kernels": [
         entry("fused_mg_pcg", "mgfused.cu",
@@ -3491,7 +3603,11 @@ def main():
         entry("dia_cg_k1", "dia.cu", "ops/pallas_cg.py:118 k1_kernel",
               c_jac["dia_cg"], t_k1),
         entry("dia_cg_k2", "dia.cu", "ops/pallas_cg.py:151 k2_kernel",
-              c_jac["dia_cg"], t_k2)]}))
+              c_jac["dia_cg"], t_k2),
+        entry("ebe_apply", "ebe.cu", "no TPU kernel: jax.jvp under jit in "
+              "parallel/dofpart.py", ebe_launches, t_ebe,
+              launches_where="224^2 distributed record, warm-ups and "
+              "captures; its graphs replay each action")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -28,7 +28,14 @@ Design (the reference's, on the shard axis of parallel/comm.py):
     the exchanges outside it: fold(jvp(core, ext(x), ext(v))). The
     exchanges are linear, so this is the tangent arithmetic the
     reference's jax.jvp through ppermute does, and nothing
-    differentiates through a collective.
+    differentiates through a collective. With a Schwarz preconditioner
+    (asm_lu, asm_btlu) the Newton step's factor has the cells' element
+    matrices at the step's point, and the action is their
+    element-by-element product between the same exchanges,
+    fold(ebe(Ae, ext(v))) (ops/ebe.py, a CUDA kernel on the card), the
+    facet legs' matrices computed once a step beside them; the jvp
+    stays the action of the jacobi and schur paths and of
+    jacobian_action, and the oracle the element-matrix action is held to.
   * Newton and Krylov loops read the host once per Newton step and once
     per chunk of Krylov iterations (la/loop.while_loop); GMRES once per
     Arnoldi step and once per restart cycle.
@@ -37,8 +44,9 @@ Design (the reference's, on the shard axis of parallel/comm.py):
     factor (its element matrices, block scatter, factor and the apply's
     graph capture) and `dist.gmres` a Krylov solve, holding
     `dist.jac_action` and `dist.asm_apply` for each action and apply;
-    counters `dist.gmres_its` (Arnoldi steps), `dist.graph_captures`
-    and `host_reads`. Spans sit at the call sites of the replayed
+    counters `dist.gmres_its` (Arnoldi steps), `dist.ebe_actions`
+    (actions served from element matrices), `dist.graph_captures` and
+    `host_reads`. Spans and counts sit at the call sites of the replayed
     operators, never inside a function a graph captures.
 
 Host setup (partition, rewritten gathers, BC masks, io maps) is plain
@@ -57,6 +65,7 @@ from torch.func import jvp, vmap
 from ..core.logging import PhaseTimer, count, rank_print, span
 from ..la.blocktri import bt_apply, bt_factor
 from ..la.loop import while_loop
+from ..ops.ebe import ebe_apply
 from .comm import ShardComm
 
 
@@ -642,6 +651,60 @@ class DistributedProblem:
         subdomains in one process (_graphed)."""
         return self._graphed(self._jac_action(x, cv, fcv, consts, bcm), x)
 
+    def _cell_matrices(self, x, cv, consts):
+        """The local subdomains' cell element matrices at x, (nloc * cpd,
+        L, L) in the slot order of self._li, unscaled."""
+        return self.form._element_matrices_core(
+            self._forward_ext(x).reshape(-1), cv, consts, self.data)
+
+    def _ebe_index(self):
+        """int32 positions in the nloc stacked extended vectors of the
+        cells' local slots, (nloc * cpd, L), then of each facet leg's:
+        mesh-only, built once."""
+        if "ebe_idx" not in self._cache:
+            sh = torch.arange(self.nloc, device=self.device)[:, None, None]
+            cells = (self._li + sh * self.ext_total).reshape(
+                -1, self._li.shape[-1])
+            self._cache["ebe_idx"] = [
+                t.to(torch.int32)
+                for t in [cells] + [fd["li"] for fd in self.facet_data]]
+        return self._cache["ebe_idx"]
+
+    def _ebe_action(self, x, Ae, fcv, consts, bcm):
+        """v -> J(x) v from element matrices, with _jac_action's bc
+        treatment: Ae, the cells' matrices at x (_cell_matrices), and the
+        facet legs' matrices, computed here at x, each applied by
+        ops/ebe between the exchanges, fold(ebe(A, ext(w))). The operator
+        of _jac_action's jvp, summed in another order."""
+        n = self.nloc * self.ext_total
+        mats = [Ae]
+        if self.facet_forms:
+            x_ext = self._forward_ext(x).reshape(-1)
+            mats += [ff._element_matrices_core(x_ext, fcv, consts, fd)
+                     for ff, fd in zip(self.facet_forms, self.facet_data)]
+        idx = self._ebe_index()
+
+        def Av(v):
+            w = self._forward_ext(torch.where(bcm, 0.0, v)).reshape(-1)
+            t = ebe_apply(mats[0], idx[0], w, n)
+            for A, g in zip(mats[1:], idx[1:]):
+                t = t + ebe_apply(A, g, w, n)
+            y = self._reverse_fold(t.reshape(self.nloc, self.ext_total))
+            return torch.where(bcm, v, y)
+
+        return Av
+
+    def _ebe_operator(self, x, Ae, fcv, consts, bcm):
+        """_ebe_action, replayed as _jac_operator's (_graphed); each call
+        counts one `dist.ebe_actions`, outside the graph."""
+        run = self._graphed(self._ebe_action(x, Ae, fcv, consts, bcm), x)
+
+        def Av(v):
+            count("dist.ebe_actions")
+            return run(v)
+
+        return Av
+
     def _local_diagonal(self, x, cv, fcv, consts, bcm):
         n = self.nloc * self.ext_total
         x_ext = self._forward_ext(x).reshape(-1)
@@ -999,16 +1062,15 @@ class DistributedProblem:
         keep = (touched > 0.0) & (bcm_ext <= 0.5)
         return keep, keep.to(dtype)
 
-    def _asm_lu_pc(self, x, cv, consts):
+    def _asm_lu_pc(self, x, Ae):
         """Restricted additive Schwarz with a DENSE subdomain factor: the
         extended subdomain matrix of each local subdomain, assembled from
         its own cells (untouched and Dirichlet extended dofs get identity
         rows), LU-factored in one batched call; applied as gather ->
         subdomain solve -> owned restriction. O(ext_total^2) memory a
-        subdomain: the small-size strong PC."""
+        subdomain: the small-size strong PC. Ae: the cells' element
+        matrices at x (_cell_matrices)."""
         E, nloc, cpd = self.ext_total, self.nloc, self.cpd
-        Ae = self.form._element_matrices_core(
-            self._forward_ext(x).reshape(-1), cv, consts, self.data)
         L = Ae.shape[-1]
         li = self._li
         sh = torch.arange(nloc, device=self.device)[:, None, None, None]
@@ -1119,19 +1181,20 @@ class DistributedProblem:
         nb, bs = abt["nb"], abt["bs"]
         return (3 * nb - 2) * bs * bs * (4 if factor_dtype == "f32" else 8)
 
-    def _asm_btlu_pc(self, x, cv, consts, factor_dtype):
+    def _asm_btlu_pc(self, x, cv, consts, factor_dtype, Ae=None):
         """Restricted additive Schwarz with a BLOCK-TRIDIAGONAL subdomain
         factor over the BFS level blocking of _asm_btlu_setup: every local
         subdomain's equilibrated extended matrix scattered into its
         (nb, bs, bs) D/L/U blocks, block-Thomas factored for all
         subdomains at once (a leading batch axis), applied as gather ->
-        block solve -> owned restriction."""
+        block solve -> owned restriction. Ae: the cells' element matrices
+        at x (_cell_matrices), computed here when not given."""
         abt = self._asm_btlu_setup()
         nb, bs = abt["nb"], abt["bs"]
         blk, locp, padp = abt["blk"], abt["loc"], abt["pad"]
         E, nloc, cpd = self.ext_total, self.nloc, self.cpd
-        Ae = self.form._element_matrices_core(
-            self._forward_ext(x).reshape(-1), cv, consts, self.data)
+        if Ae is None:
+            Ae = self._cell_matrices(x, cv, consts)
         L = Ae.shape[-1]
         Ae = Ae.reshape(nloc, cpd, L, L)
         li = self._li
@@ -1185,6 +1248,20 @@ class DistributedProblem:
             return self._restrict_owned(z_ext)
 
         return self._graphed(Minv, x)
+
+    def _schwarz_operators(self, x, cv, fcv, consts, bcm, pc,
+                           factor_dtype):
+        """A Newton step's Jacobian action and Schwarz preconditioner at x
+        for pc asm_lu or asm_btlu: the factor first, in the span
+        `dist.asm_factor` with the cells' element matrices, then the
+        action from those matrices (_ebe_operator). Returns (Av, Minv)."""
+        with span("dist.asm_factor"):
+            Ae = self._cell_matrices(x, cv, consts)
+            if pc == "asm_lu":
+                Minv = self._asm_lu_pc(x, Ae)
+            else:
+                Minv = self._asm_btlu_pc(x, cv, consts, factor_dtype, Ae)
+        return self._ebe_operator(x, Ae, fcv, consts, bcm), Minv
 
     # --------------------------- fused Newton with linesearch + PC choice
 
@@ -1288,23 +1365,20 @@ class DistributedProblem:
 
             def body(s):
                 it, x, F, fn_, _ = s
-                Av = self._jac_operator(x, cl, fcl, consts_, bcm)
-                if pc == "asm_lu":
-                    with span("dist.asm_factor"):
-                        Minv = self._asm_lu_pc(x, cl, consts_)
-                elif pc == "asm_btlu":
-                    with span("dist.asm_factor"):
-                        Minv = self._asm_btlu_pc(x, cl, consts_,
-                                                 factor_dtype)
-                elif pc == "schur":
-                    d = self._local_diagonal(x, cl, fcl, consts_, bcm)
-                    Minv = self._schur_pc_matfree(
-                        Av, d, m0, bc1, cheb_steps=cheb_steps,
-                        power_iters=power_iters, lmin_ratio=lmin_ratio)
+                if pc in ("asm_lu", "asm_btlu"):
+                    Av, Minv = self._schwarz_operators(
+                        x, cl, fcl, consts_, bcm, pc, factor_dtype)
                 else:
+                    Av = self._jac_operator(x, cl, fcl, consts_, bcm)
                     d = self._local_diagonal(x, cl, fcl, consts_, bcm)
-                    dinv = torch.where(torch.abs(d) > 1e-300, 1.0 / d, 1.0)
-                    Minv = torch.abs(dinv) if ksp == "minres" else dinv
+                    if pc == "schur":
+                        Minv = self._schur_pc_matfree(
+                            Av, d, m0, bc1, cheb_steps=cheb_steps,
+                            power_iters=power_iters, lmin_ratio=lmin_ratio)
+                    else:
+                        dinv = torch.where(torch.abs(d) > 1e-300, 1.0 / d,
+                                           1.0)
+                        Minv = torch.abs(dinv) if ksp == "minres" else dinv
                 if ksp == "gmres":
                     # deep restart: GMRES(30) stagnates on the RAS-
                     # preconditioned indefinite LVPP saddle (the

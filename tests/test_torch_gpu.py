@@ -571,6 +571,98 @@ def test_distributed_graph_replay_is_the_eager_action(cuda):
     assert _rel(graphed(2.0 * v), eager(2.0 * v)) <= 1e-14
 
 
+def test_distributed_schwarz_graph_replay_is_the_eager_jvp_action(cuda):
+    """On the asm_btlu path the Newton step's action, replayed as a CUDA
+    graph from the Schwarz factor's element matrices through the
+    element-by-element kernel, gives the eager jvp action's values within
+    1e-13 relative (the kernel's atomics add in no fixed order)."""
+    from proximalgalerkin_torch.core.logging import counter
+    from proximalgalerkin_torch.mesh.unstructured import create_disk_mesh
+    from proximalgalerkin_torch.ops.ebe import ebe_apply
+    from chip_smoke import _dist_obstacle
+    prob, dp = _dist_obstacle(cuda, create_disk_mesh(0.2))
+    N = prob.space.num_dofs
+    rng = np.random.default_rng(0)
+    x, v = dp.scatter(rng.standard_normal(N)), dp.scatter(
+        rng.standard_normal(N))
+    cv = dp._prep_coeffs({"phi": dp.scatter_cellq(
+        prob.problem.coeffs["phi"])} | {
+        k: dp.scatter_coeff(k, rng.standard_normal(
+            prob.space.spaces["u"].num_dofs)) for k in ("psi_k", "u_k")})
+    consts = {"alpha": torch.tensor(3.0, dtype=torch.float64, device=cuda)}
+    captures, launches = counter("dist.graph_captures"), ebe_apply.launches
+    Av, _ = dp._schwarz_operators(x, cv, {}, consts, dp.bc_mask, "asm_btlu",
+                                  "f64")
+    # the factor's apply and the action: a graph each, the action's
+    # kernel launched for its warm-up and its capture alone
+    assert counter("dist.graph_captures") - captures == 2
+    assert ebe_apply.launches - launches == 2
+    eager = dp._jac_action(x, cv, {}, consts, dp.bc_mask)
+    assert _rel(Av(v), eager(v)) <= 1e-13
+    assert _rel(Av(2.0 * v), eager(2.0 * v)) <= 1e-13
+    assert ebe_apply.launches - launches == 2
+
+
+# The 224^2 distributed cell's shapes (100,352 cells, L = 6, 8 extended
+# vectors of 37,974), a vector field's L = 9, and the largest L with few
+# rows a slot (many atomics into each y entry)
+EBE_SHAPES = [(100_352, 6, 8 * 37_974), (50_000, 9, 150_000),
+              (4_000, 32, 3_000)]
+
+
+@pytest.mark.parametrize("ne, L, n", EBE_SHAPES)
+def test_ebe_kernel_matches_plain(cuda, ne, L, n):
+    """The element-by-element kernel against its plain version within
+    1e-13 relative: each row's sum goes into y with an atomic add, whose
+    order changes from launch to launch, so the sums into one entry round
+    in another order than index_add's."""
+    from proximalgalerkin_torch.ops.ebe import ebe_apply, ebe_apply_reference
+    from chip_smoke import ebe_system
+    A, gidx, x = ebe_system(cuda, ne, L, n, seed=L)
+    yk = ebe_apply(A, gidx, x, n)
+    torch.cuda.synchronize()
+    assert yk.shape == (n,) and yk.device.type == "cuda"
+    assert _rel(yk, ebe_apply_reference(A, gidx, x, n)) <= 1e-13
+    # a larger out_size leaves the tail zero
+    y2 = ebe_apply(A, gidx, x, n + 5)
+    assert _rel(y2[:n], yk) <= 1e-13 and not y2[n:].any()
+
+
+def test_ebe_kernel_rejects_bad_inputs(cuda):
+    from proximalgalerkin_torch.ops.ebe import MAX_L, ebe_apply
+    from chip_smoke import ebe_system
+    A, gidx, x = ebe_system(cuda, 100, 6, 300, seed=0)
+    with pytest.raises(TypeError):
+        ebe_apply(A.float(), gidx, x, 300)
+    with pytest.raises(TypeError):
+        ebe_apply(A, gidx.long(), x, 300)
+    with pytest.raises(ValueError):
+        big = torch.zeros(10, MAX_L + 1, MAX_L + 1, dtype=torch.float64,
+                          device=cuda)
+        ebe_apply(big, torch.zeros(10, MAX_L + 1, dtype=torch.int32,
+                                   device=cuda), x, 300)
+    with pytest.raises(ValueError):
+        ebe_apply(A.cpu(), gidx, x, 300)
+    with pytest.raises(ValueError):
+        ebe_apply(A, gidx.cpu(), x, 300)
+    with pytest.raises(ValueError):
+        ebe_apply(A.transpose(1, 2), gidx, x, 300)
+    with pytest.raises(ValueError):
+        ebe_apply(A, gidx, x[::2], 150)
+
+
+def test_ebe_launch_counter_counts(cuda):
+    from proximalgalerkin_torch.ops.ebe import ebe_apply
+    from chip_smoke import ebe_system
+    A, gidx, x = ebe_system(cuda, 100, 6, 300, seed=1)
+    before = ebe_apply.launches
+    for _ in range(3):
+        ebe_apply(A, gidx, x, 300)
+    assert ebe_apply.launches - before == 3
+    ebe_apply(A.cpu(), gidx.cpu(), x.cpu(), 300)     # the plain version
+    assert ebe_apply.launches - before == 3
+
+
 def test_recorder_on_under_a_card_only_profile(cuda):
     """The benchmark's first traced solve records the device alone
     (profile(activities=[CUDA])): the recorder is on there, each span

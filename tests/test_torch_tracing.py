@@ -341,3 +341,47 @@ def test_distributed_solve_records_its_layer():
     driver.solve(state)
     assert len(pglog.RECORDER.spans) == kept
     assert counter("dist.gmres_its") - before == newton.krylov_its[-1]
+
+
+def test_distributed_actions_from_element_matrices_are_counted():
+    """`dist.ebe_actions` on the benchmark's distributed cell at 16^2 on
+    the CPU, its first Newton step: on the asm_btlu path every GMRES
+    action comes from the factor's element matrices, one count in each
+    `dist.jac_action` span and as many in the process total untraced; on
+    the jacobi path (MINRES on the jvp action) none."""
+    from pathlib import Path
+
+    from pgbench import harness, inputs
+    root = Path(__file__).resolve().parents[1]
+    cell = harness.load_cell(root, "obstacle_dist_224.asm_btlu")
+    cell.config["n"] = 16
+    inp = inputs.make(cell.config, cell.workload["params"], 11)
+    driver = cell.driver()
+    state = driver.setup(cell.config, cell.workload, inp,
+                         torch.device("cpu"))
+    newton = state.solver.newton
+    newton.options["snes_max_it"] = 1
+    restart = int(newton.options["ksp_gmres_restart"])
+    with tracing():
+        driver.solve(state)
+    group = _root("lvpp.solve")
+    actions = [s for s in group if s.name == "dist.jac_action"]
+    assert len(actions) == newton.krylov_its[-1] + -(
+        -newton.krylov_its[-1] // restart)
+    assert all(s.counts.get("dist.ebe_actions") == 1 for s in actions)
+    assert sum(s.counts.get("dist.ebe_actions", 0)
+               for s in group) == len(actions)
+    before = counter("dist.ebe_actions")
+    driver.solve(state)
+    its = newton.krylov_its[-1]
+    assert counter("dist.ebe_actions") - before == its + -(-its // restart)
+    # jacobi: the jvp action, none counted
+    newton.options["pc_type"] = "jacobi"
+    newton.options["ksp_max_it"] = 20
+    before = counter("dist.ebe_actions")
+    with tracing():
+        driver.solve(state)
+    group = _root("lvpp.solve")
+    assert [s for s in group if s.name == "newton.solve"]
+    assert not [s for s in group if s.name == "dist.asm_factor"]
+    assert counter("dist.ebe_actions") == before
