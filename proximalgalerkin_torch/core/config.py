@@ -15,7 +15,6 @@ from __future__ import annotations
 import os
 from typing import Any, Mapping
 
-import numpy as np
 import torch
 
 
@@ -24,11 +23,6 @@ def default_dtype() -> torch.dtype:
     if os.environ.get("PGTPU_DISABLE_X64", "0") == "1":
         return torch.float32
     return torch.float64
-
-
-def index_dtype():
-    """Default integer dtype for mesh/dofmap indices."""
-    return np.int32
 
 
 class SolverOptions(dict):

@@ -177,17 +177,3 @@ class Mesh:
         if hint is not None:
             return hint
         return np.unique(self.facet_vertices[self.exterior_facets])
-
-    def h_max(self) -> float:
-        """Maximum cell diameter (used for the fracture length scale,
-        reference fracture_dolfinx.py:87-94)."""
-        cv = self.points[self.cell_vertices]   # (ncells, nverts, gdim)
-        d = np.linalg.norm(cv[:, :, None, :] - cv[:, None, :, :], axis=-1)
-        return float(d.max())
-
-    def h_min(self) -> float:
-        cv = self.points[self.cell_vertices]
-        d = np.linalg.norm(cv[:, :, None, :] - cv[:, None, :, :], axis=-1)
-        nv = cv.shape[1]
-        iu = np.triu_indices(nv, 1)
-        return float(d[:, iu[0], iu[1]].min())

@@ -375,10 +375,3 @@ def solve_multiphase(
                             mass_history=masses,
                             refactors_per_step=refactors)
 
-
-def save_npz(result: MultiphaseResult, path, **config):
-    """np.savez of iteration counts + run config (reference
-    multiphase_dolfinx.py:325-341)."""
-    np.savez(path, newton_iterations=result.newton_iterations,
-             lvpp_iterations=result.lvpp_iterations,
-             u=result.u, **config)

@@ -25,15 +25,9 @@ from typing import Callable, List
 import numpy as np
 import torch
 
-from ..elements.orthopoly import jacobi_all, jacobi_p
+from ..elements.orthopoly import jacobi_all
 from ..la.loop import while_loop
 from .obstacle import spherical_cap_obstacle
-
-
-def _zernike_radial(n: int, m: int, r: np.ndarray) -> np.ndarray:
-    """R_n^m(r) via the Jacobi-polynomial representation."""
-    k = (n - m) // 2
-    return (-1.0) ** k * r**m * jacobi_p(1.0 - 2.0 * r**2, float(m), 0.0, k)
 
 
 def _zernike_radial_all(p: int, m: int, r: np.ndarray) -> np.ndarray:

@@ -36,9 +36,12 @@ Design (the reference's, on the shard axis of parallel/comm.py):
     facet legs' matrices computed once a step beside them; the jvp
     stays the action of the jacobi and schur paths and of
     jacobian_action, and the oracle the element-matrix action is held to.
-  * Newton and Krylov loops read the host once per Newton step and once
-    per chunk of Krylov iterations (la/loop.while_loop); GMRES once per
-    Arnoldi step and once per restart cycle.
+  * The Newton loop is the serial solvers' (solve/nonlinear.newton_loop)
+    with norms on the shard axis, read once per Newton step; the Krylov
+    loops once per chunk of iterations (la/loop.while_loop), GMRES once
+    per Arnoldi step and once per restart cycle. DistributedNewtonSolver
+    is a NewtonSolver: the serial fused solve's read, SNES reason and
+    finish.
   * Spans and counters (core/logging): `newton.solve` a distributed
     Newton solve; in it `dist.asm_factor` a Newton step's Schwarz
     factor (its element matrices, block scatter, factor and the apply's
@@ -62,11 +65,41 @@ import numpy as np
 import torch
 from torch.func import jvp, vmap
 
-from ..core.logging import PhaseTimer, count, rank_print, span
+from ..core.logging import count, span
 from ..la.blocktri import bt_apply, bt_factor
 from ..la.loop import while_loop
 from ..ops.ebe import ebe_apply
+from ..solve.newton import NewtonSolver
+from ..solve.nonlinear import _fused_linesearch, newton_loop
 from .comm import ShardComm
+
+
+def _shard_bt_linesearch(fsq, x, dx, fnorm, damping):
+    """The reference's distributed 'bt' line search -> (x_new, ok): halve
+    lambda from `damping` until 0.5 fsq(x + lambda dx) <= (1 - 2e-4
+    lambda) g0, at most 16 times (fsq the shard axis's squared norm of the
+    residual)."""
+    alpha_c = 1e-4
+    g0 = 0.5 * fnorm * fnorm
+    dev = x.device
+
+    def cond(s):
+        i, lam, ok = s
+        return (i < 16) & ~ok
+
+    def body(s):
+        i, lam, ok = s
+        g = 0.5 * fsq(x + lam * dx)
+        ok = torch.isfinite(g) & (g <= g0 - 2.0 * alpha_c * lam * g0)
+        return i + 1, torch.where(ok, lam, 0.5 * lam), ok
+
+    # chunk 1: each backtrack is a residual, and most line searches accept
+    # the full step
+    _, lam, ok = while_loop(
+        cond, body, (torch.zeros((), dtype=torch.int64, device=dev),
+                     torch.tensor(damping, dtype=x.dtype, device=dev),
+                     torch.zeros((), dtype=torch.bool, device=dev)), chunk=1)
+    return x + lam * dx, ok
 
 
 # ----------------------------------------------------------- host-side setup
@@ -942,53 +975,6 @@ class DistributedProblem:
 
         return functional
 
-    # ------------------------------------------------- fused Newton solve
-
-    def newton_solver(self, ksp: str = "minres", rtol: float = 1e-6,
-                      atol: float = 1e-50, max_it: int = 100,
-                      ksp_rtol: float = 1e-10, ksp_atol: float = 0.0,
-                      ksp_max_it: int = 20000, damping: float = 1.0):
-        """Distributed Newton: residual -> Jacobi-preconditioned CG/MINRES
-        direction -> damped update, one host read a Newton step. Returns
-        fn(x_shard, coeffs, consts, facet_coeffs) -> (x, n_iters, fnorm,
-        f0) as device tensors."""
-
-        def fn(x_shard, coeffs=None, consts=None, facet_coeffs=None):
-            cl = self._prep_coeffs(coeffs)
-            fcl = self._flat_facet(facet_coeffs)
-            consts_ = dict(consts or self.consts)
-            bcm, bcv = self.bc_mask, self.bc_val
-
-            def res(z):
-                return self._local_residual(z, cl, fcl, consts_, bcm, bcv)
-
-            x = torch.where(bcm, bcv, x_shard)
-            F = res(x)
-            f0 = torch.sqrt(self._pdot(F, F))
-            stop = torch.clamp(rtol * f0, min=atol)
-
-            def cond(s):
-                it, x, F, fn_ = s
-                return (it < max_it) & (fn_ > stop) & torch.isfinite(fn_)
-
-            def body(s):
-                it, x, F, _ = s
-                Av = self._jac_operator(x, cl, fcl, consts_, bcm)
-                d = self._local_diagonal(x, cl, fcl, consts_, bcm)
-                dinv = torch.where(torch.abs(d) > 1e-300, 1.0 / d, 1.0)
-                Minv = torch.abs(dinv) if ksp == "minres" else dinv
-                solver = self._minres if ksp == "minres" else self._cg
-                dx = solver(Av, -F, Minv, ksp_rtol, ksp_atol, ksp_max_it)
-                x = x + damping * dx
-                F = res(x)
-                return it + 1, x, F, torch.sqrt(self._pdot(F, F))
-
-            it0 = torch.zeros((), dtype=torch.int64, device=self.device)
-            it, x, F, fn_ = while_loop(cond, body, (it0, x, F, f0), chunk=1)
-            return x, it, fn_, f0
-
-        return fn
-
     # ---------------------------------------- matrix-free Schur (block PC)
 
     def _schur_pc_matfree(self, Av, diag, m0, bc1, cheb_steps=4,
@@ -1273,15 +1259,16 @@ class DistributedProblem:
                           lmin_ratio: float = 30.0,
                           factor_dtype: str = "f64",
                           gmres_restart: int = 120):
-        """The distributed Newton the LVPP driver consumes: one host read
-        a Newton step, l2/bt line searches (the reference's distributed
-        twins) and jacobi, matrix-free block-Schur, dense-RAS (asm_lu) or
-        block-tridiagonal-RAS (asm_btlu, the scalable strong PC)
-        preconditioning. Returns fn(x_shard, coeffs, consts,
-        facet_coeffs, rtol, atol, ksp_rtol, ksp_atol, damping) ->
-        (x, it, fnorm, f0, ls_ok) as device tensors; fn.krylov_its is the
-        Krylov iteration count of the last call for GMRES (None
-        otherwise)."""
+        """The distributed Newton the LVPP driver consumes: the device
+        loop of solve/nonlinear.newton_loop (one host read a Newton step,
+        norms on the shard axis, no stol test) with l2/bt line searches
+        (the reference's distributed twins) and jacobi, matrix-free
+        block-Schur, dense-RAS (asm_lu) or block-tridiagonal-RAS
+        (asm_btlu, the scalable strong PC) preconditioning. Returns
+        fn(x_shard, coeffs, consts, facet_coeffs, rtol, atol, ksp_rtol,
+        ksp_atol, damping) -> (x, it, fnorm, f0, ls_ok, sconv) as device
+        tensors (sconv always False); fn.krylov_its is the Krylov
+        iteration count of the last call for GMRES (None otherwise)."""
         if pc == "asm_btlu":
             self._asm_btlu_setup()
         m0 = torch.zeros(self.Bsum, dtype=self.dtype, device=self.device)
@@ -1289,7 +1276,6 @@ class DistributedProblem:
             f0name = schur_field0 or self.space.names[0]
             for name in str(f0name).split(","):
                 m0[self.field_slice(name.strip())] = 1.0
-        dev = self.device
 
         def fn(x_shard, coeffs=None, consts=None, facet_coeffs=None,
                rtol=1e-8, atol=1e-50, ksp_rtol=1e-10, ksp_atol=0.0,
@@ -1311,60 +1297,7 @@ class DistributedProblem:
                 F = res(z)
                 return self._pdot(F, F)
 
-            def do_linesearch(x, dx, fn_):
-                true = torch.ones((), dtype=torch.bool, device=dev)
-                if linesearch == "none":
-                    return x + damping * dx, true
-                if linesearch == "l2":
-                    lam = damping
-                    f_old = fn_ * fn_
-                    f_mid = fsq(x + 0.5 * lam * dx)
-                    f_new = fsq(x + lam * dx)
-                    dF = (3.0 * f_new - 4.0 * f_mid + f_old) / lam
-                    d2F = 4.0 * (f_new - 2.0 * f_mid + f_old) / lam ** 2
-                    lam_t = torch.where(torch.abs(d2F) > 1e-300,
-                                        lam - dF / d2F, 0.5 * lam)
-                    lam_t = torch.where(torch.isfinite(lam_t) & (lam_t > 0.0),
-                                        lam_t, 0.5 * lam)
-                    xn = x + lam_t * dx
-                    return xn, torch.isfinite(fsq(xn))
-                if linesearch == "bt":
-                    alpha_c = 1e-4
-                    g0 = 0.5 * fn_ * fn_
-
-                    def cond_ls(s):
-                        i, lam, ok = s
-                        return (i < 16) & ~ok
-
-                    def body_ls(s):
-                        i, lam, ok = s
-                        g = 0.5 * fsq(x + lam * dx)
-                        ok = torch.isfinite(g) & (
-                            g <= g0 - 2.0 * alpha_c * lam * g0)
-                        return i + 1, torch.where(ok, lam, 0.5 * lam), ok
-
-                    # chunk 1: each backtrack is a residual, and most line
-                    # searches accept the full step
-                    _, lam, ok = while_loop(
-                        cond_ls, body_ls,
-                        (torch.zeros((), dtype=torch.int64, device=dev),
-                         torch.tensor(damping, dtype=x.dtype, device=dev),
-                         ~true), chunk=1)
-                    return x + lam * dx, ok
-                raise ValueError(f"unknown fused linesearch {linesearch!r}")
-
-            x = torch.where(bcm, bcv, x_shard)
-            F = res(x)
-            f0n = pnorm(F)
-            stop = torch.clamp(rtol * f0n, min=atol)
-
-            def cond(s):
-                it, x, F, fn_, ls_ok = s
-                return ((it < max_it) & (fn_ > stop) & torch.isfinite(fn_)
-                        & ls_ok)
-
-            def body(s):
-                it, x, F, fn_, _ = s
+            def step(x, F):
                 if pc in ("asm_lu", "asm_btlu"):
                     Av, Minv = self._schwarz_operators(
                         x, cl, fcl, consts_, bcm, pc, factor_dtype)
@@ -1388,17 +1321,19 @@ class DistributedProblem:
                         dx = self._gmres(Av, -F, Minv, ksp_rtol, ksp_atol,
                                          ksp_max_it, restart=gmres_restart)
                     fn.krylov_its += self.last_krylov_its
-                else:
-                    solver = self._minres if ksp == "minres" else self._cg
-                    dx = solver(Av, -F, Minv, ksp_rtol, ksp_atol, ksp_max_it)
-                x, ls_ok = do_linesearch(x, dx, fn_)
-                F = res(x)
-                return it + 1, x, F, pnorm(F), ls_ok
+                    return dx
+                solver = self._minres if ksp == "minres" else self._cg
+                return solver(Av, -F, Minv, ksp_rtol, ksp_atol, ksp_max_it)
 
-            state = (torch.zeros((), dtype=torch.int64, device=dev), x, F,
-                     f0n, torch.ones((), dtype=torch.bool, device=dev))
-            it, x, F, fn_, ls_ok = while_loop(cond, body, state, chunk=1)
-            return x, it, fn_, f0n, ls_ok
+            def search(x, dx, fnorm):
+                if linesearch == "bt":
+                    return _shard_bt_linesearch(fsq, x, dx, fnorm, damping)
+                return _fused_linesearch(linesearch, res, fsq, x, dx, fnorm,
+                                         damping)
+
+            return newton_loop(res, pnorm, step, search,
+                               torch.where(bcm, bcv, x_shard), rtol, atol,
+                               0.0, max_it)
 
         fn.krylov_its = None
         return fn
@@ -1473,36 +1408,34 @@ def _fused_options(opts):
     return ksp, pc
 
 
-class DistributedNewtonSolver:
-    """NewtonSolver-compatible driver over fused_lvpp_newton, reusing the
-    SNES reason codes of solve/newton.py so commit-on-convergence and the
-    fracture retry machine work unchanged on shards."""
+class DistributedNewtonSolver(NewtonSolver):
+    """The NewtonSolver over fused_lvpp_newton: its one read a solve, SNES
+    reason and finish, so commit-on-convergence and the fracture retry
+    machine work unchanged on shards. snes_stol and snes_fused_chunk are
+    not taken on shards; krylov_its gathers each GMRES solve's Krylov
+    iteration count."""
+
+    FUSED_PHASE = "newton_fused_distributed"
 
     def __init__(self, problem: DistributedLvppProblem, options=None,
                  timer=None):
-        from ..core.config import SolverOptions
-        self.problem = problem
-        self.options = options if isinstance(options, SolverOptions) \
-            else SolverOptions(options or {})
-        self.timer = timer or PhaseTimer(problem.device)
+        super().__init__(problem, options, timer)
         self.krylov_its = []
 
     def solve(self, x_shard):
         """One distributed Newton solve from x_shard, inside the span
         `newton.solve` (as NewtonSolver.solve)."""
         with span("newton.solve"):
-            return self._solve(x_shard)
+            return self._solve_fused(x_shard)
 
-    def _solve(self, x_shard):
-        from ..core.reasons import ConvergedReason, NotConvergedError
-        from ..solve.newton import NewtonResult
+    def _fused_call(self):
         opts = self.options
-        prob = self.problem
         ksp, pc = _fused_options(opts)
-        fused = prob.dp.fused_lvpp_newton(
+        max_it = int(opts.opt("snes_max_it"))
+        fused = self.problem.dp.fused_lvpp_newton(
             ksp=ksp, pc=pc,
             linesearch=str(opts.opt("snes_linesearch_type")),
-            max_it=int(opts.opt("snes_max_it")),
+            max_it=max_it,
             ksp_max_it=int(opts.opt("ksp_max_it")),
             schur_field0=opts.opt("pc_schur_field0", None),
             cheb_steps=int(opts.opt("pc_schur_cheb_steps", 4)),
@@ -1511,35 +1444,12 @@ class DistributedNewtonSolver:
             factor_dtype="f32" if str(opts.opt(
                 "pc_factor_dtype", "f64")) in ("f32", "single") else "f64",
             gmres_restart=int(opts.opt("ksp_gmres_restart", 120)))
-        with self.timer.phase("newton_fused_distributed"):
-            x, it, fn, f0, ls_ok = fused(
-                x_shard, prob.coeffs, prob.consts, prob.facet_coeffs,
-                rtol=float(opts.opt("snes_rtol")),
-                atol=float(opts.opt("snes_atol")),
-                ksp_rtol=float(opts.opt("ksp_rtol")),
-                ksp_atol=float(opts.opt("ksp_atol")),
-                damping=float(opts.opt("snes_linesearch_damping")))
-            count("host_reads")
-            it, fn, f0, ls_ok = torch.stack(
-                [it.to(f0.dtype), fn, f0, ls_ok.to(f0.dtype)]).tolist()
+        kw = dict(facet_coeffs=self.problem.facet_coeffs,
+                  ksp_rtol=float(opts.opt("ksp_rtol")),
+                  ksp_atol=float(opts.opt("ksp_atol")),
+                  damping=float(opts.opt("snes_linesearch_damping")))
+        return fused, kw, max_it
+
+    def _tally(self, fused):
         if fused.krylov_its is not None:
             self.krylov_its.append(fused.krylov_its)
-        it = int(it)
-        if not ls_ok:
-            reason = ConvergedReason.DIVERGED_LINE_SEARCH
-        elif not np.isfinite(fn):
-            reason = ConvergedReason.DIVERGED_FNORM_NAN
-        elif fn < float(opts.opt("snes_atol")):
-            reason = ConvergedReason.CONVERGED_FNORM_ABS
-        elif fn <= float(opts.opt("snes_rtol")) * f0:
-            reason = ConvergedReason.CONVERGED_FNORM_RELATIVE
-        else:
-            reason = ConvergedReason.DIVERGED_MAX_IT
-        if opts.opt("snes_converged_reason"):
-            rank_print(f"Nonlinear solve converged due to {reason.name} "
-                       f"iterations {it}" if reason.converged else
-                       f"Nonlinear solve did not converge due to "
-                       f"{reason.name} iterations {it}")
-        if (not reason.converged) and opts.opt("snes_error_if_not_converged"):
-            raise NotConvergedError(reason)
-        return NewtonResult(x, reason, it, fn, [f0, fn])

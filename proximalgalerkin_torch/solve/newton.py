@@ -13,7 +13,9 @@ MUMPS stand-in: element matrices on the device, SuperLU on the host) or
 device Krylov (cg/minres/gmres/bicgstab with Jacobi preconditioning, or
 MINRES with the block-Schur preconditioners of la/schur.py). With
 linesearch 'none' one Newton step reads the host once for its convergence
-tests; `snes_fused` runs the whole Newton loop on the device.
+tests; `snes_fused` runs the whole Newton loop on the device
+(solve/nonlinear.newton_loop) and reads it once a call, as the distributed
+solver of parallel/dofpart.py, a NewtonSolver over the same loop, does.
 pc_type='btlu' solves each Newton system with the device block-tridiagonal
 factor of la/blocktri.py and f64 refinement (`_bt_direction`); with
 `snes_fused` and `pc_factor_lag` the lagged factor rides the fused loop
@@ -239,8 +241,7 @@ class NewtonSolver:
             with self.timer.phase("lu_resid"):
                 return b - apply(dx)
 
-        import os as _os
-        refine_debug = bool(_os.environ.get("PGTPU_REFINE_DEBUG"))
+        monitor = bool(opts.opt("ksp_monitor", False))
 
         def refine(lu, fresh):
             """Richardson refinement while it contracts well; on slow
@@ -252,7 +253,7 @@ class NewtonSolver:
             for _p in range(refine_max):
                 r = resid(dx)
                 rn = float(np.linalg.norm(r))
-                if refine_debug:
+                if monitor:
                     rank_print(f"      refine[{'F' if fresh else 's'}] "
                                f"pass {_p}: |r|/|b| {rn / bnorm:.2e}")
                 if not np.isfinite(rn):
@@ -458,10 +459,13 @@ class NewtonSolver:
         if (not reason.converged) and opts.opt("snes_error_if_not_converged"):
             raise NotConvergedError(reason)
 
-    def _solve_fused(self, x0) -> NewtonResult:
-        """Whole-solve path: the Newton loop of
-        NonlinearProblem.fused_newton on the device; the SNES reason is
-        reconstructed from one host read per call."""
+    # the phase that times a fused solve, its read included
+    FUSED_PHASE = "newton_fused"
+
+    def _fused_call(self):
+        """(fused, kw, it_per_call): the device Newton loop these options
+        select, the keywords of a call beside x0, coeffs, consts, rtol,
+        atol and it_cap, and the Newton iterations one call may take."""
         opts = self.options
         prob = self.problem
         pc_opts = {k: opts[k] for k in (*DIRECTION_OPTS,
@@ -494,6 +498,19 @@ class NewtonSolver:
                 ksp_max_it=int(opts.opt("ksp_max_it")),
                 schur_field0=opts.opt("pc_schur_field0", None),
                 pc_opts=pc_opts)
+        return fused, kw, it_per_call
+
+    def _tally(self, fused):
+        """Book what a fused call reports beside its result."""
+        self.refactors += getattr(fused, "last_refactors", 0)
+
+    def _solve_fused(self, x0) -> NewtonResult:
+        """Whole-solve path: the device Newton loop of _fused_call; the
+        SNES reason is reconstructed from one host read per call."""
+        opts = self.options
+        prob = self.problem
+        fused, kw, it_per_call = self._fused_call()
+        max_it = int(opts.opt("snes_max_it"))
         rtol_o = float(opts.opt("snes_rtol"))
         atol_o = float(opts.opt("snes_atol"))
 
@@ -502,13 +519,13 @@ class NewtonSolver:
             count("host_reads")
             return torch.stack([t.to(torch.float64) for t in ts]).tolist()
 
-        with self.timer.phase("newton_fused"):
+        with self.timer.phase(self.FUSED_PHASE):
             x, it, fn, f0, ls_ok, sconv = fused(
                 x0, prob.coeffs, prob.consts, rtol=rtol_o, atol=atol_o,
                 **kw)
             it, fn, f0, ls_ok, sconv = read(it, fn, f0, ls_ok, sconv)
             it = int(it)
-            self.refactors += getattr(fused, "last_refactors", 0)
+            self._tally(fused)
             if it_per_call < max_it:
                 # continuation chunks test against the FIRST chunk's f0
                 atol_eff = max(atol_o, rtol_o * f0)
@@ -521,7 +538,7 @@ class NewtonSolver:
                         atol=atol_eff, it_cap=budget, **kw)
                     itc, fn, ls_ok, sconv = read(itc, fn, ls_ok, sconv)
                     it += int(itc)
-                    self.refactors += getattr(fused, "last_refactors", 0)
+                    self._tally(fused)
                     if int(itc) < budget:
                         break
         reason = self._reason(bool(ls_ok), fn, f0, bool(sconv))

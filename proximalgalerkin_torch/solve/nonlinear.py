@@ -7,9 +7,11 @@ symmetric BC treatment of the Jacobian (zeroed bc rows/columns, identity on
 the bc diagonal) — for both the matrix-free action and assembled matrices.
 
 Device-resident Newton directions (`direction_solver`) and the whole-solve
-Newton loop (`fused_newton`) run their iterations as la/loop.while_loop:
-the Krylov loops read the host once per chunk of about 64 iterations, a
-refinement pass or a Newton step once each.
+Newton loops run their iterations as la/loop.while_loop: the Krylov loops
+read the host once per chunk of about 64 iterations, a refinement pass or
+a Newton step once each. `newton_loop` is the one device Newton loop;
+`fused_newton`, `fused_newton_btlu` and parallel/dofpart's
+`fused_lvpp_newton` give it their direction and line search.
 
 The block-tridiagonal direct direction pc='btlu' (la/blocktri.py) runs in
 both: refactored every Newton step in `fused_newton`, and lagged across
@@ -24,6 +26,7 @@ inner MINRES inside f64 iterative refinement).
 
 from __future__ import annotations
 
+import contextlib
 from typing import Mapping, Optional, Sequence
 
 import numpy as np
@@ -161,6 +164,46 @@ def _fused_linesearch(linesearch, residual, fsq, x, dx, fnorm, damping):
         lam = torch.where(ok_full, lam0, lam)
         return x + lam * dx, ok
     raise ValueError(f"unknown fused linesearch {linesearch!r}")
+
+
+def newton_loop(residual, norm, direction, linesearch, x, rtol, atol, stol,
+                cap, update_phase=contextlib.nullcontext):
+    """The device Newton loop of every fused solver, from x with its
+    Dirichlet values set: dx = direction(x, F); then, inside
+    update_phase(), (x_new, ls_ok) = linesearch(x, dx, fnorm), the SNES
+    stol test ||x_new - x|| < stol ||x_new|| (where stol > 0) and the new
+    residual. It runs while fnorm > max(rtol f0, atol) is finite, ls_ok
+    and not the stol test, for at most cap steps, one host read a step
+    (chunk 1: a masked step would still solve); `norm` is the serial or
+    the shard axis's 2-norm. -> (x, it, fnorm, f0, ls_ok, sconv) on the
+    device, from which NewtonSolver._reason rebuilds the SNES reason."""
+    dev = x.device
+    F = residual(x)
+    f0 = norm(F)
+    stop = torch.clamp(rtol * f0, min=atol)
+    false = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def cond(s):
+        it, x, F, fnorm, ls_ok, sconv = s
+        return ((fnorm > stop) & torch.isfinite(fnorm) & ~sconv
+                & (it < cap) & ls_ok)
+
+    def body(s):
+        it, x, F, fnorm, _, _ = s
+        dx = direction(x, F)
+        with update_phase():
+            xn, ls_ok = linesearch(x, dx, fnorm)
+            sconv = false
+            if stol > 0:
+                sconv = norm(xn - x) < stol * torch.clamp(norm(xn),
+                                                          min=1e-300)
+            F = residual(xn)
+        return it + 1, xn, F, norm(F), ls_ok, sconv
+
+    state = (torch.zeros((), dtype=torch.int64, device=dev), x, F, f0,
+             ~false, false)
+    it, x, F, fnorm, ls_ok, sconv = while_loop(cond, body, state, chunk=1)
+    return x, it, fnorm, f0, ls_ok, sconv
 
 
 class EllSplit:
@@ -571,14 +614,29 @@ class NonlinearProblem:
 
         return direction
 
+    def _fused_residual(self, coeffs, consts):
+        """(residual, fsq) of the fused solvers at these coefficients:
+        the BC-consistent residual and its squared 2-norm."""
+        form = self.form
+
+        def residual(z):
+            return self._bc_residual(
+                z, form._residual_core(z, coeffs, consts))
+
+        def fsq(z):
+            F = residual(z)
+            return torch.dot(F, F)
+
+        return residual, fsq
+
     def fused_newton(self, ksp: str, pc: str, mat_type: str = "ell",
                      linesearch: str = "none", max_it: int = 100,
                      ksp_max_it: int = 10_000, schur_field0=None,
                      pc_opts: Optional[Mapping] = None):
         """Whole-solve Newton on the device: residual -> Krylov direction
-        -> linesearch -> update, as one device loop that reads its
-        condition once per Newton step (the Krylov loops inside read once
-        per chunk). SNES semantics preserved: the returned
+        -> linesearch -> update, as one device loop (newton_loop) that
+        reads its condition once per Newton step (the Krylov loops inside
+        read once per chunk). SNES semantics preserved: the returned
         (it, fnorm, f0, ls_ok, sconv) suffice to reconstruct the converged
         reason on the host, from one read.
 
@@ -591,8 +649,6 @@ class NonlinearProblem:
         if key in self._direction_cache:
             return self._direction_cache[key]
 
-        form = self.form
-        dev = self.device
         direction = self._make_direction_fn(ksp, pc, mat_type, schur_field0,
                                             pc_opts=pc_opts)
 
@@ -602,43 +658,18 @@ class NonlinearProblem:
             coeffs = dict(coeffs if coeffs is not None else self.coeffs)
             consts = dict(consts if consts is not None else self.consts)
             cap = min(max_it if it_cap is None else int(it_cap), max_it)
+            residual, fsq = self._fused_residual(coeffs, consts)
 
-            def residual(z):
-                return self._bc_residual(
-                    z, form._residual_core(z, coeffs, consts))
+            def step(x, F):
+                return direction(x, F, coeffs, consts, ksp_rtol, ksp_atol,
+                                 ksp_max_it)
 
-            def fsq(z):
-                F = residual(z)
-                return torch.dot(F, F)
+            def search(x, dx, fnorm):
+                return _fused_linesearch(linesearch, residual, fsq, x, dx,
+                                         fnorm, damping)
 
-            x = self.set_bc(x0)
-            F = residual(x)
-            f0 = torch.linalg.norm(F)
-            stop = torch.clamp(rtol * f0, min=atol)
-
-            def cond(s):
-                it, x, F, fnorm, ls_ok, sconv = s
-                return ((fnorm > stop) & torch.isfinite(fnorm) & ~sconv
-                        & (it < cap) & ls_ok)
-
-            def body(s):
-                it, x, F, fnorm, _, _ = s
-                dx = direction(x, F, coeffs, consts, ksp_rtol, ksp_atol,
-                               ksp_max_it)
-                xn, ls_ok = _fused_linesearch(linesearch, residual, fsq,
-                                              x, dx, fnorm, damping)
-                # SNES stol test (||x_new - x|| < stol ||x_new||)
-                sconv = torch.linalg.norm(xn - x) < stol * torch.clamp(
-                    torch.linalg.norm(xn), min=1e-300)
-                F = residual(xn)
-                return it + 1, xn, F, torch.linalg.norm(F), ls_ok, sconv
-
-            state = (torch.zeros((), dtype=torch.int64, device=dev), x, F,
-                     f0, torch.ones((), dtype=torch.bool, device=dev),
-                     torch.zeros((), dtype=torch.bool, device=dev))
-            it, x, F, fnorm, ls_ok, sconv = while_loop(cond, body, state,
-                                                       chunk=1)
-            return x, it, fnorm, f0, ls_ok, sconv
+            return newton_loop(residual, torch.linalg.norm, step, search,
+                               self.set_bc(x0), rtol, atol, stol, cap)
 
         self._direction_cache[key] = fn
         return fn
@@ -654,20 +685,18 @@ class NonlinearProblem:
         loop reuse it. Each Newton step first refines the carried factor
         against the CURRENT assembled Jacobian; only when refinement
         misses ksp tolerance (a stale factor) does it refactor. The Newton
-        loop is la/loop.while_loop with chunk 1 (a masked step would still
-        factor): one host read a Newton step, on which the refactor
-        decision is a host branch; the refinement inside is a device loop
-        read once a pass.
+        loop is newton_loop (one host read a Newton step, on which the
+        refactor decision is a host branch); the refinement inside is a
+        device loop read once a pass.
 
         Returns fn(x0, coeffs, consts, rtol, atol, stol, ksp_rtol,
         ksp_atol, damping, it_cap, timer) -> (x, it, fnorm, f0, ls_ok,
         sconv) as device tensors; fn.reset() drops the factor,
         fn.last_refactors is the refactor count of the last call. With a
         PhaseTimer, the Jacobian assembly, factor, refinement and line
-        search are timed as 'bt_assemble', 'bt_factor', 'bt_solve' and
-        'linesearch'.
+        search (with the stol test and the new residual) are timed as
+        'bt_assemble', 'bt_factor', 'bt_solve' and 'linesearch'.
         """
-        import contextlib
         pc_opts = dict(pc_opts or {})
         split = getattr(self, "ell_split", None)
         key = ("fused_btlu", linesearch, max_it, split is not None,
@@ -678,7 +707,6 @@ class NonlinearProblem:
         from ..la import blocktri as btm
         form = self.form
         ell = self.ell_matrix
-        dev = self.device
         blocking = self.line_blocking()
         fdt = btm.factor_dtype(pc_opts.get("pc_factor_dtype", "f32"))
         algo = str(pc_opts.get("pc_factor_algo", "thomas"))
@@ -703,28 +731,10 @@ class NonlinearProblem:
                      else lambda name: contextlib.nullcontext())
             lin_data = None if split is None else split.lin_data(coeffs,
                                                                  consts)
-
-            def residual(z):
-                return self._bc_residual(
-                    z, form._residual_core(z, coeffs, consts))
-
-            def fsq(z):
-                F = residual(z)
-                return torch.dot(F, F)
-
-            x = self.set_bc(x0)
-            F = residual(x)
-            f0 = torch.linalg.norm(F)
-            stop = torch.clamp(rtol * f0, min=atol)
+            residual, fsq = self._fused_residual(coeffs, consts)
             fn.last_refactors = 0
 
-            def cond(s):
-                it, x, F, fnorm, ls_ok, sconv = s
-                return ((fnorm > stop) & torch.isfinite(fnorm) & ~sconv
-                        & (it < cap) & ls_ok)
-
-            def body(s):
-                it, x, F, fnorm, _, _ = s
+            def step(x, F):
                 with phase("bt_assemble"):
                     if split is None:
                         data = ell.assemble(form._element_matrices_core(
@@ -755,21 +765,15 @@ class NonlinearProblem:
                     with phase("bt_solve"):
                         dx = btm.refine(fn._fact.solve, Av, b, stop2,
                                         passes)[0]
-                with phase("linesearch"):
-                    xn, ls_ok = _fused_linesearch(linesearch, residual, fsq,
-                                                  x, dx, fnorm, damping)
-                    # SNES stol test (||x_new - x|| < stol ||x_new||)
-                    sconv = torch.linalg.norm(xn - x) < stol * torch.clamp(
-                        torch.linalg.norm(xn), min=1e-300)
-                    F = residual(xn)
-                return it + 1, xn, F, torch.linalg.norm(F), ls_ok, sconv
+                return dx
 
-            state = (torch.zeros((), dtype=torch.int64, device=dev), x, F,
-                     f0, torch.ones((), dtype=torch.bool, device=dev),
-                     torch.zeros((), dtype=torch.bool, device=dev))
-            it, x, F, fnorm, ls_ok, sconv = while_loop(cond, body, state,
-                                                       chunk=1)
-            return x, it, fnorm, f0, ls_ok, sconv
+            def search(x, dx, fnorm):
+                return _fused_linesearch(linesearch, residual, fsq, x, dx,
+                                         fnorm, damping)
+
+            return newton_loop(residual, torch.linalg.norm, step, search,
+                               self.set_bc(x0), rtol, atol, stol, cap,
+                               lambda: phase("linesearch"))
 
         fn._fact = None
         fn.last_refactors = 0
@@ -787,7 +791,6 @@ class NonlinearProblem:
         sorted-unique (row, col) CSR slots on the host. With a PhaseTimer,
         the device assembly, the copy to the host and the scatter are
         timed as 'assembly', 'host_transfer' and 'csr'."""
-        import contextlib
         import scipy.sparse as sp
         from ..native import scatter_add
         phase = (timer.phase if timer is not None

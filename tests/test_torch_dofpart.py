@@ -206,10 +206,11 @@ def _host_lvpp(p, space, solver, options, scheduler, to_x, steps=3):
 
 
 def test_fused_newton_lvpp_matches_single_device():
-    """The distributed Newton reproduces the single-device host-loop LVPP
-    trajectory of tests/test_dofpart.py (disk res 0.25, 3 steps): Newton
-    counts identical to the reference's host and distributed runs, x
-    within 1e-10 of the reference's host run."""
+    """The distributed Newton (fused_lvpp_newton, minres/jacobi)
+    reproduces the single-device host-loop LVPP trajectory of
+    tests/test_dofpart.py (disk res 0.25, 3 steps): Newton counts
+    identical to the reference's host run and its distributed
+    newton_solver's, x within 1e-10 of the reference's host run."""
     prob = setup_obstacle_problem(create_disk_mesh(0.25), polynomial_order=1,
                                   verbose=False, device="cpu")
     rprob = ref_setup(ref_disk(0.25), polynomial_order=1, verbose=False)
@@ -218,8 +219,16 @@ def test_fused_newton_lvpp_matches_single_device():
                                 RefScheduler, jnp.asarray)
 
     def run(dp, alpha):
-        newton = dp.newton_solver(ksp="minres", rtol=1e-6, max_it=50,
-                                  ksp_rtol=1e-11, ksp_max_it=2000)
+        if isinstance(dp, RefDP):
+            newton = dp.newton_solver(ksp="minres", rtol=1e-6, max_it=50,
+                                      ksp_rtol=1e-11, ksp_max_it=2000)
+        else:
+            fused = dp.fused_lvpp_newton(ksp="minres", pc="jacobi",
+                                         max_it=50, ksp_max_it=2000)
+
+            def newton(xs, coeffs, consts):
+                return fused(xs, coeffs, consts, rtol=1e-6,
+                             ksp_rtol=1e-11)[:4]
         q = dp.problem
         phi = dp.scatter_cellq(np.asarray(q.coeffs["phi"]))
         sched = AlphaScheduler(scheme="double_exponential", alpha_max=1e5)
@@ -390,8 +399,12 @@ def test_signorini_composite_newton_partition_independent(signorini):
     x_ref = np.asarray(xh)
 
     def run_dist(dpx):
-        newton_d = dpx.newton_solver(ksp="minres", rtol=1e-6, max_it=50,
-                                     ksp_rtol=1e-12, ksp_max_it=8000)
+        fused = dpx.fused_lvpp_newton(ksp="minres", pc="jacobi", max_it=50,
+                                      ksp_max_it=8000)
+
+        def newton_d(xs, facet_coeffs, consts):
+            return fused(xs, consts=consts, facet_coeffs=facet_coeffs,
+                         rtol=1e-6, ksp_rtol=1e-12)[:4]
         xs = dpx.scatter(space.zeros())
         a = 0.005
         its = []

@@ -3,7 +3,8 @@
 on the CPU with 8 subdomains (the reference on its 8 virtual devices):
 the LVPP driver of tests/test_dofpart.py (held to the reference's host
 run, which that test proves equal to its distributed run), the retry
-machine and the line-search / block-Schur variants, each with its Newton
+machine, the SNES reason of a solve stopped at its iteration cap, and the
+line-search / block-Schur variants, each with its Newton
 counts identical to the reference's distributed run. The Schwarz
 variants and the asm_btlu strength case are in
 test_torch_dofpart_asm.py."""
@@ -123,6 +124,49 @@ def test_lvpp_driver_distributed_retry_machine():
     assert (res.newton_steps, res.iterations, res.converged) == \
         (ref.newton_steps, ref.iterations, ref.converged)
     assert np.allclose(res.increments, ref.increments, rtol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def capped_start():
+    """The port's distributed problem on the disk at res 0.3 (8
+    subdomains) at the first LVPP step's point (alpha 1, zero latent)."""
+    prob = setup_obstacle_problem(create_disk_mesh(0.3), polynomial_order=1,
+                                  verbose=False, device="cpu")
+    dp = DistributedProblem(prob.problem, n_devices=ND)
+    dlp = DistributedLvppProblem(dp)
+    xs = dp.scatter(np.zeros(prob.space.num_dofs))
+    dlp.update(coeffs={"phi": dp.scatter_cellq(
+        np.asarray(prob.problem.coeffs["phi"])),
+        "psi_k": dp.field_to_coeff(xs, "psi"),
+        "u_k": dp.field_to_coeff(xs, "u")},
+        consts={"alpha": torch.tensor(1.0, dtype=torch.float64)})
+    return dlp, xs
+
+
+@pytest.mark.parametrize("error_if_not_converged", [False, True])
+def test_distributed_newton_reason_at_its_cap(capped_start,
+                                              error_if_not_converged):
+    """A distributed Newton solve capped at snes_max_it=1 (this start
+    takes several steps to converge) stops with DIVERGED_MAX_IT after its
+    one step, with its residual reduced; with snes_error_if_not_converged
+    it raises NotConvergedError with that reason instead."""
+    from proximalgalerkin_torch.core.reasons import (ConvergedReason,
+                                                     NotConvergedError)
+    dlp, xs = capped_start
+    newton = dlp.make_newton_solver(dict(
+        DRIVER_OPTS, snes_max_it=1,
+        snes_error_if_not_converged=error_if_not_converged))
+    if error_if_not_converged:
+        with pytest.raises(NotConvergedError) as err:
+            newton.solve(xs)
+        assert err.value.reason == ConvergedReason.DIVERGED_MAX_IT
+        return
+    res = newton.solve(xs)
+    assert res.reason == ConvergedReason.DIVERGED_MAX_IT
+    assert not res.converged
+    assert res.iterations == 1
+    f0, fn = res.fnorm_history
+    assert np.isfinite(fn) and fn < f0
 
 
 VARIANTS = {
