@@ -32,8 +32,9 @@
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. the card (nvidia-smi name and power limit, torch and CUDA versions);
-2. build of the CUDA kernels (csrc/mgfused.cu, csrc/dia.cu and
-   csrc/ebe.cu) from the sources, one nvcc for each, started together;
+2. build of the CUDA kernels (csrc/mgfused.cu, csrc/dia.cu, csrc/ebe.cu
+   and csrc/btapply.cu) from the sources, one nvcc for each, started
+   together;
 3. the fused MG-PCG kernel against its plain PyTorch version on the card,
    at m = 1025 on a deep-contact Schur state made with numpy from a seed:
    its pieces (matvec step, down and up legs of a level, one V-cycle, the
@@ -112,8 +113,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    per-step counts equal to the JAX package's CPU counts pinned here,
    mass conserved to 1e-10, simplex row sums within 1e-6; each with its
    seconds, factor/solve shares, refactors, PhaseTimer report and peak
-   device memory, and zero launches of the port's CUDA kernels; then the
-   time of one factor and one apply at the block shapes of (ii) and (v);
+   device memory, and the launches of the port's CUDA kernels (the
+   block-Thomas apply, csrc/btapply.cu, where a dense block-Thomas factor
+   is applied: the btlu runs but the streamed factor, the (i) cases of
+   Thomas and the lagged factor, (v); none else); then the time of one
+   factor and one apply at the block shapes of (ii) and (v);
    (vi) depth cuts of the JAX package's all-device btlu records
    (BTLU_RECORDS), in a child process beside the (i) checks as (iv):
    example 01's disk at res 0.0085 (101,000 dofs), its first LVPP step
@@ -188,13 +192,19 @@ Phases, each printing its own lines; any failure exits non-zero:
    the shares of residuals, Jacobian actions, cell element matrices,
    Schwarz factors and applies (DistTally), peak device memory and the
    launches of the port's CUDA kernels (the element-by-element product
-   on the Schwarz paths, none else); (iii) init_multihost on NCCL at
+   and the block-Thomas apply on the Schwarz paths, none else); (iii)
+   init_multihost on NCCL at
    world size 1: the disk-0.25 obstacle on 4 subdomains through the
    process group bit for bit equal to the in-process run; (iv) the
    element-by-element product kernel (csrc/ebe.cu) against its plain
    version at the 224^2 cell's shapes (its gathers, 100,352 cells, L =
    6) and at a vector field's L = 9, within 1e-13 relative, with its
-   device time beside its bound and the plain version's time;
+   device time beside its bound and the plain version's time; (v) the
+   block-Thomas apply kernel (csrc/btapply.cu) against its plain
+   version at the 224^2 cell's blocking (8 subdomains, 253 x 151) and
+   the disk cell's (97 x 200), f64, within 1e-12 relative and bit for
+   bit between two launches, with its device time beside its bound, the
+   plain version's time and its launch geometry;
 15. a JSON line of the kernels, then the JSON status line.
 
 Lines starting "--" give the time into the run at which each group of
@@ -524,17 +534,17 @@ def phase_card():
 def phase_build():
     print("== phase 2: build", flush=True)
     from concurrent.futures import ThreadPoolExecutor
-    from proximalgalerkin_torch.ops import dia_spmv, ebe, mgfused
+    from proximalgalerkin_torch.ops import btapply, dia_spmv, ebe, mgfused
 
     def one(mod):
         t0 = time.time()
         report = mod.build(force=True)
         return time.time() - t0, report
 
-    with ThreadPoolExecutor(3) as ex:
+    with ThreadPoolExecutor(4) as ex:
         futs = {name: ex.submit(one, mod)
                 for name, mod in (("mgfused", mgfused), ("dia", dia_spmv),
-                                  ("ebe", ebe))}
+                                  ("ebe", ebe), ("btapply", btapply))}
         done = {name: f.result() for name, f in futs.items()}
     for name, (secs, report) in done.items():
         print(f"build csrc/{name}.cu {secs:.2f} s", flush=True)
@@ -868,21 +878,34 @@ def phase_dia_cg(dev, offsets, data) -> tuple:
 
 
 def reset_counters():
-    from proximalgalerkin_torch.ops import dia_cg, dia_spmv, ebe, mgfused
+    from proximalgalerkin_torch.ops import (btapply, dia_cg, dia_spmv, ebe,
+                                            mgfused)
     mgfused.solve.launches = 0
     dia_spmv.dia_spmv.launches = 0
     dia_cg.solve.launches = 0
     dia_cg.solve.replays = 0
     ebe.ebe_apply.launches = 0
+    btapply.bt_apply.launches = 0
 
 
 def read_counters() -> dict:
-    from proximalgalerkin_torch.ops import dia_cg, dia_spmv, ebe, mgfused
+    from proximalgalerkin_torch.ops import (btapply, dia_cg, dia_spmv, ebe,
+                                            mgfused)
     return {"fused_mg_pcg": mgfused.solve.launches,
             "dia_spmv": dia_spmv.dia_spmv.launches,
             "dia_cg": dia_cg.solve.launches,
             "dia_cg_replays": dia_cg.solve.replays,
-            "ebe": ebe.ebe_apply.launches}
+            "ebe": ebe.ebe_apply.launches,
+            "bt_apply": btapply.bt_apply.launches}
+
+
+def check_launches(launches: dict, what: str, uses=()):
+    """The port's kernels named in `uses` launched, and no other."""
+    for name, n in launches.items():
+        if name in uses:
+            check(n > 0, f"{what} launches {name}")
+        else:
+            check(n == 0, f"{what} launches no {name}")
 
 
 def counters_since(before: dict) -> dict:
@@ -1658,8 +1681,7 @@ def phase_btlu(dev, lvpp_a, multiphase_24=None):
               f"{shares(timer_a, secs_a)}", flush=True)
         print("  PhaseTimer:\n    " + timer.report().replace("\n", "\n    "),
               flush=True)
-        check(all(v == 0 for v in launches.values()),
-              f"(ii) {fdt} launches none of the port's kernels")
+        check_launches(launches, f"(ii) {fdt}", uses=("bt_apply",))
         # the JAX package's CPU runs break down here (f64 at outer step
         # 7, f32 one step earlier): its equilibration scales latent rows
         # by diagonals near underflow (la/blocktri._equilibrate); the
@@ -1701,8 +1723,7 @@ def phase_btlu(dev, lvpp_a, multiphase_24=None):
               + timer.report().replace("\n", "\n    "), flush=True)
         check(converged, f"{name} (iii) converged")
         check(counts == REFERENCE_COUNTS[name], f"{name} (iii) counts")
-        check(all(v == 0 for v in launches.values()),
-              f"{name} (iii) launches none of the port's kernels")
+        check_launches(launches, f"{name} (iii)", uses=("bt_apply",))
 
     # (iv) multiphase at the 24^2 record (LU); (v) the CLI's 50^2 width
     # (fused lagged btlu)
@@ -1803,8 +1824,9 @@ def report_multiphase(rec: dict):
     check(steps > 0 and rec["counts"] == pinned, f"{key} counts")
     check(rec["dmass"] <= 1e-10, f"{key} mass conserved")
     check(rec["rows"] <= 1e-6, f"{key} simplex row sums")
-    check(all(v == 0 for v in rec["launches"].values()),
-          f"{key} launches none of the port's kernels")
+    # the fused lagged btlu applies its dense factor with the kernel
+    check_launches(rec["launches"], key, uses=(
+        ("bt_apply",) if MULTIPHASE_RECORDS[key][2] else ()))
 
 
 # Phase 12: the block-Schur preconditioners (la/schur.py, la/gmg.py,
@@ -2675,12 +2697,12 @@ class DistTally:
 
 
 def dist_record(dev, title, run, counts_of, pinned, checks_of, tally=True,
-                ebe=False):
+                schwarz=False):
     """One record of phase 14 (ii): run(timer) on dev, its counts held to
     `pinned` and its checks, with its seconds, the tally's shares, peak
     device memory and launches of the port's kernels (the
-    element-by-element product where `ebe`, a Schwarz path's, none
-    else)."""
+    element-by-element product and the block-Thomas apply where
+    `schwarz`, an asm_btlu path's, none else)."""
     t = DistTally(dev)
     if tally:
         with t:
@@ -2696,10 +2718,8 @@ def dist_record(dev, title, run, counts_of, pinned, checks_of, tally=True,
     for what, ok in checks_of(r):
         print(f"  {what}: {ok}", flush=True)
         check(ok, f"{title}: {what}")
-    check(all(v == 0 for k, v in launches.items() if k != "ebe"),
-          f"{title} launches none of the port's other kernels")
-    check((launches["ebe"] > 0) == ebe,
-          f"{title} launches the element-by-element product: {ebe}")
+    check_launches(launches, title,
+                   uses=("ebe", "bt_apply") if schwarz else ())
     dist_record.launches = launches
     return r
 
@@ -2745,7 +2765,8 @@ def dist_obstacle_record(dev, n: int, steps: int, host_ref: bool):
     r = dist_record(
         dev, f"distributed obstacle {n}^2 ({N:,} dofs), 8 subdomains, "
         f"asm_btlu GMRES(120), {steps} LVPP steps", run,
-        lambda r: {"newton": r.newton_steps}, pinned, checks, ebe=True)
+        lambda r: {"newton": r.newton_steps}, pinned, checks,
+        schwarz=True)
     its = nwt[0].krylov_its
     print(f"  GMRES iterations an LVPP step {its}; per-subdomain owned "
           f"dofs {dp.Bsum} (record {DIST_224_RECORD['per_device_owned']} at "
@@ -2900,19 +2921,21 @@ def phase_multiprocess(dev):
               "process)", flush=True)
 
 
-def phase_distributed(dev) -> dict:
-    """Phase 14 (ii)-(iv); returns the element-by-element kernel's
-    timing with its launches in the 224^2 record."""
+def phase_distributed(dev) -> tuple:
+    """Phase 14 (ii)-(v); returns the element-by-element kernel's and the
+    block-Thomas apply kernel's timings, each with its launches in the
+    224^2 record."""
     print("== phase 14 (ii): the distributed records", flush=True)
     t0 = time.perf_counter()
     dist_obstacle_record(dev, 96, 3, host_ref=True)
     print(f"-- 96^2 record {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    dp, _ = dist_obstacle_record(dev, 224, 1, host_ref=False)
-    launches = dist_record.launches["ebe"]
+    dp, abt = dist_obstacle_record(dev, 224, 1, host_ref=False)
+    launches = dist_record.launches
     print(f"-- 224^2 first step {time.perf_counter() - t0:.1f} s",
           flush=True)
     timing = phase_ebe(dev, dp._ebe_index()[0], dp.nloc * dp.ext_total)
+    bt_timing = phase_bt_apply(dev, dp.nloc, abt["nb"], abt["bs"])
     del dp
     t0 = time.perf_counter()
     fracture_dist_record(dev, FRACTURE_DIST_STEPS)
@@ -2921,7 +2944,8 @@ def phase_distributed(dev) -> dict:
     halo_record(dev, 257, REFERENCE_COUNTS["halo_257"])
     print(f"-- halo 257 {time.perf_counter() - t0:.1f} s", flush=True)
     phase_multiprocess(dev)
-    return dict(timing, launches=launches)
+    return (dict(timing, launches=launches["ebe"]),
+            dict(bt_timing, launches=launches["bt_apply"]))
 
 
 def ebe_system(dev, ne: int, L: int, n: int, seed: int, gidx=None):
@@ -2983,7 +3007,87 @@ def phase_ebe(dev, gidx, n: int) -> dict:
     return timing
 
 
+def bt_system(dev, S, nb: int, bs: int, dtype, seed: int):
+    """A block-Thomas apply's inputs on dev: Minv (S, nb, bs, bs), T and L
+    (S, nb - 1, bs, bs) with standard normal entries scaled by 0.25 /
+    sqrt(bs) (norms about 0.5, so the substitution contracts), b (S, nb,
+    bs) standard normal; from a generator on dev seeded with seed. S None:
+    no batch axis."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    lead = () if S is None else (S,)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(lead + shape, generator=g, dtype=torch.float64,
+                           device=dev).mul_(scale).to(dtype)
+
+    sc = 0.25 / bs ** 0.5
+    return (randn(nb, bs, bs, scale=sc), randn(nb - 1, bs, bs, scale=sc),
+            randn(nb - 1, bs, bs, scale=sc), randn(nb, bs))
+
+
+def bt_bytes(S: int, nb: int, bs: int, isz: int) -> int:
+    """What a block-Thomas apply reads and writes once: the factor's
+    3 nb - 2 blocks, b and x."""
+    return S * ((3 * nb - 2) * bs * bs + 2 * nb * bs) * isz
+
+
+def phase_bt_apply(dev, S: int, nb: int, bs: int) -> dict:
+    """Phase 14 (v): the block-Thomas apply kernel (csrc/btapply.cu)
+    against its plain version (la/blocktri.bt_apply_reference) at the
+    distributed cell's shapes (S subdomains, nb x bs: 8, 253, 151) and the
+    disk cell's (1, 97, 200) in f64, on bt_system's random factors: within
+    1e-12 relative to max |x| (another sum order, through factors that
+    contract), two launches bit for bit equal; its device time a launch
+    (torch.profiler over 20) beside its bound (the factor, b and x once at
+    3.35 TB/s) and the plain version's time a call (CUDA events), with
+    its launch geometry. Returns the distributed shape's timing."""
+    print("== phase 14 (v): the block-Thomas apply kernel against its "
+          "plain version", flush=True)
+    from proximalgalerkin_torch.la.blocktri import bt_apply_reference
+    from proximalgalerkin_torch.ops import btapply
+    timing = {}
+    for label, shape in (("distributed cell", (S, nb, bs)),
+                         ("disk cell", (1, 97, 200))):
+        Minv, T, L, b = bt_system(dev, *shape, torch.float64, SEED + 9)
+        before = btapply.bt_apply.launches
+        xk = btapply.bt_apply(Minv, T, L, b)
+        xk2 = btapply.bt_apply(Minv, T, L, b)
+        xp = bt_apply_reference(Minv, T, L, b)
+        torch.cuda.synchronize()
+        err = rel_max(xk, xp)
+        same = bool(torch.equal(xk, xk2))
+        ms_k = device_ms(lambda: btapply.bt_apply(Minv, T, L, b),
+                         ["k_bt_apply"], calls=20)["k_bt_apply"]
+        ms_p = per_call_ms(lambda: bt_apply_reference(Minv, T, L, b),
+                           calls=5)
+        nbytes = bt_bytes(*shape, 8)
+        bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        geo = btapply.plan(*shape, torch.float64, dev)
+        print(f"bt_apply {label} S={shape[0]} nb={shape[1]} bs={shape[2]} "
+              f"f64: max rel diff {err:.3e} (bound 1e-12), two launches "
+              f"equal {same}; kernel {ms_k:.4f} ms device, plain "
+              f"{ms_p:.4f} ms per call (median of 3 runs of 5); bound "
+              f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB at 3.35 TB/s), "
+              f"{100 * bound_ms / ms_k:.1f}% of it; {3 * shape[1] - 2} "
+              f"dependent products; geometry {geo}; launches "
+              f"{btapply.bt_apply.launches - before}", flush=True)
+        check(err <= 1e-12, f"bt_apply {label}")
+        check(same, f"bt_apply {label}: two launches bit for bit")
+        if not timing:
+            timing = {"max_rel_err": err, "ms": ms_k, "plain_ms": ms_p,
+                      "bound_ms": bound_ms, "bound_by": "bytes"}
+        del Minv, T, L, b, xk, xk2, xp
+    return timing
+
+
 BTLU_LABEL = "gradient 12^2 P2 btlu "
+# the (i) cases whose direction applies a dense block-Thomas factor on the
+# card, with the kernel of ops/btapply (cyclic reduction and the streamed
+# layout keep their own applies)
+BT_KERNEL_CASES = {BTLU_LABEL + "thomas_f32",
+                   BTLU_LABEL + "lagged_f64_f32apply",
+                   "multiphase N=10 fused_btlu"}
 
 
 def case_group(group: str) -> list:
@@ -3040,8 +3144,8 @@ def card_vs_cpu(dev, group: str, cpu=None) -> dict:
               f"{secs:.1f} s on the card", flush=True)
         check(c_card == c_cpu, f"{what} counts")
         check(dmax <= bound, f"{what} fields")
-        check(all(v == 0 for v in launches.values()),
-              f"{what} launches none of the port's kernels")
+        check_launches(launches, what, uses=(
+            ("bt_apply",) if label + name in BT_KERNEL_CASES else ()))
     return {k: v[0] for k, v in card.items()}
 
 
@@ -3481,8 +3585,8 @@ def btlu_record(dev, name: str, cut: bool = False) -> dict:
     # a depth cut ends before its LVPP loop converges
     check(converged or cut, f"{name} converged")
     check(len(tap.seen) > 0, f"{name} ran the btlu direction")
-    check(all(v == 0 for v in launches.values()),
-          f"{name} launches none of the port's kernels")
+    check_launches(launches, name, uses=(
+        ("bt_apply",) if any(s[-1] == "dense" for s in tap.seen) else ()))
     return {"name": name, "secs": secs, "counts": counts,
             "refactors": timer.counts.get("bt_factor", 0),
             "blocking": sorted(tap.seen), "peak_gib": peak}
@@ -3580,7 +3684,7 @@ def main():
         stamp("phase 12 (ii)-(iv)")
         phase_contact(dev, fd_res)
         stamp("phase 13 (ii)-(iv)")
-        t_ebe = phase_distributed(dev)
+        t_ebe, t_bt = phase_distributed(dev)
         stamp("phase 14 (ii)-(iv)")
     print(f"smoke run {time.perf_counter() - T_START:.1f} s", flush=True)
 
@@ -3591,6 +3695,7 @@ def main():
                     launches=launches, **timing, **extra)
 
     ebe_launches = t_ebe.pop("launches")
+    bt_launches = t_bt.pop("launches")
 
     print(json.dumps({"kernels": [
         entry("fused_mg_pcg", "mgfused.cu",
@@ -3607,7 +3712,11 @@ def main():
         entry("ebe_apply", "ebe.cu", "no TPU kernel: jax.jvp under jit in "
               "parallel/dofpart.py", ebe_launches, t_ebe,
               launches_where="224^2 distributed record, warm-ups and "
-              "captures; its graphs replay each action")]}))
+              "captures; its graphs replay each action"),
+        entry("bt_apply", "btapply.cu", "no TPU kernel: two lax.scan loops "
+              "in la/blocktri.py bt_apply", bt_launches, t_bt,
+              launches_where="224^2 distributed record, warm-ups and "
+              "captures; its graphs replay each Schwarz apply")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from ..core.logging import count, span
+from ..ops.btapply import bt_apply
 from .loop import while_loop
 
 BLOCKINV_SCHEMES = ("ns", "schur")
@@ -493,9 +494,11 @@ def _mv(A, v):
     return A @ v if v.dim() == 1 else (A @ v.unsqueeze(-1)).squeeze(-1)
 
 
-def bt_apply(Minv, T, L, b_blocks):
+def bt_apply_reference(Minv, T, L, b_blocks):
     """Forward/back substitution for one flat rhs laid out as (nb, bs), or
-    a batch (..., nb, bs) through factors with the same leading axes."""
+    a batch (..., nb, bs) through factors with the same leading axes: the
+    plain version of ops/btapply's kernel (bt_apply), which CPU tensors
+    take."""
     nb = b_blocks.shape[-2]
     y = torch.empty_like(b_blocks)
     x = torch.empty_like(b_blocks)
@@ -849,14 +852,22 @@ def refine(solve: Callable, Av: Callable, b, stop2, passes: int,
 
     -> (dx, reached, p): reached (0-dim bool tensor) whether the last
     residual is within stop2, p the number of corrections made. Each
-    factor apply is the span `bt.apply`, each residual `bt.residual`, and
-    each correction counts one `bt.refine_passes`."""
+    factor apply is the span `bt.apply`, counting one `bt.apply_kernel`
+    where the kernel of ops/btapply served it, each residual
+    `bt.residual`, and each correction counts one `bt.refine_passes`."""
+    def apply(v):
+        with span("bt.apply"):
+            n0 = bt_apply.launches
+            z = solve(v)
+            if bt_apply.launches != n0:
+                count("bt.apply_kernel")
+            return z
+
     def residual(dx):
         with span("bt.residual"):
             return b - Av(dx)
 
-    with span("bt.apply"):
-        dx = solve(b)
+    dx = apply(b)
     r = residual(dx)
     inf = torch.full((), float("inf"), dtype=b.dtype, device=b.device)
     i0 = torch.zeros((), dtype=torch.int64, device=b.device)
@@ -872,8 +883,7 @@ def refine(solve: Callable, Av: Callable, b, stop2, passes: int,
     def body(c):
         p, dx, r, rn2, _ = c
         count("bt.refine_passes")
-        with span("bt.apply"):
-            dx = dx + solve(r)
+        dx = dx + apply(r)
         r = residual(dx)
         return p + 1, dx, r, torch.dot(r, r), rn2
 

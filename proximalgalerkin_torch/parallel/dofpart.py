@@ -48,7 +48,8 @@ Design (the reference's, on the shard axis of parallel/comm.py):
     graph capture) and `dist.gmres` a Krylov solve, holding
     `dist.jac_action` and `dist.asm_apply` for each action and apply;
     counters `dist.gmres_its` (Arnoldi steps), `dist.ebe_actions`
-    (actions served from element matrices), `dist.graph_captures` and
+    (actions served from element matrices), `bt.apply_kernel` (asm_btlu
+    applies served by ops/btapply's kernel), `dist.graph_captures` and
     `host_reads`. Spans and counts sit at the call sites of the replayed
     operators, never inside a function a graph captures.
 
@@ -1174,7 +1175,9 @@ class DistributedProblem:
         (nb, bs, bs) D/L/U blocks, block-Thomas factored for all
         subdomains at once (a leading batch axis), applied as gather ->
         block solve -> owned restriction. Ae: the cells' element matrices
-        at x (_cell_matrices), computed here when not given."""
+        at x (_cell_matrices), computed here when not given. On a card the
+        block solve is one launch of ops/btapply's kernel, and each apply
+        counts one `bt.apply_kernel`, outside the graph."""
         abt = self._asm_btlu_setup()
         nb, bs = abt["nb"], abt["bs"]
         blk, locp, padp = abt["blk"], abt["loc"], abt["pad"]
@@ -1220,7 +1223,8 @@ class DistributedProblem:
         Lm = scatter(tgt_l, NL)[:, :NL]
         Um = scatter(tgt_u, NL)[:, :NL]
         fdt = torch.float32 if factor_dtype == "f32" else dt
-        Lf = Lm.reshape(nloc, nb - 1, bs, bs).to(fdt)
+        # contiguous, as the apply's kernel reads them (a slice otherwise)
+        Lf = Lm.reshape(nloc, nb - 1, bs, bs).to(fdt).contiguous()
         Mbt, Tbt = bt_factor(D.reshape(nloc, nb, bs, bs).to(fdt), Lf,
                               Um.reshape(nloc, nb - 1, bs, bs).to(fdt))
         pos = blk * bs + locp
@@ -1233,7 +1237,15 @@ class DistributedProblem:
             z_ext = s_eq * torch.gather(z.reshape(nloc, -1), 1, pos).to(dt)
             return self._restrict_owned(z_ext)
 
-        return self._graphed(Minv, x)
+        run = self._graphed(Minv, x)
+        if not Mbt.is_cuda:
+            return run
+
+        def apply(r):
+            count("bt.apply_kernel")
+            return run(r)
+
+        return apply
 
     def _schwarz_operators(self, x, cv, fcv, consts, bcm, pc,
                            factor_dtype):

@@ -445,3 +445,98 @@ def test_obstacle_40_btlu_outcome_matches_reference(dtype):
     assert r.converged and r_ref.converged
     ref_x = np.asarray(r_ref.x)
     assert _rel(r.x.numpy(), ref_x) < 1e-8
+
+
+def _bt_inputs(lead, nb, bs, dtype, seed):
+    """A block-Thomas apply's inputs: Minv, T, L with norms about 0.5
+    (standard normal entries scaled by 0.25 / sqrt(bs)), b standard
+    normal; `lead` the batch axes."""
+    rng = np.random.default_rng(seed)
+    sc = 0.25 / np.sqrt(bs)
+
+    def r(*shape, s=1.0):
+        return torch.as_tensor(rng.standard_normal(lead + shape) * s,
+                               dtype=dtype)
+
+    return (r(nb, bs, bs, s=sc), r(nb - 1, bs, bs, s=sc),
+            r(nb - 1, bs, bs, s=sc), r(nb, bs))
+
+
+@pytest.mark.parametrize("lead, nb, bs, dtype", [
+    ((3,), 7, 5, torch.float64), ((), 4, 6, torch.float64),
+    ((2, 2), 3, 4, torch.float32), ((2,), 1, 3, torch.float64)])
+def test_bt_apply_on_cpu_is_the_plain_version(lead, nb, bs, dtype):
+    """On CPU tensors bt_apply is bt_apply_reference, bit for bit; an
+    unbatched apply agrees with the JAX package's bt_apply."""
+    Minv, T, L, b = _bt_inputs(lead, nb, bs, dtype, nb * bs)
+    x = bt.bt_apply(Minv, T, L, b)
+    assert x.shape == b.shape and x.dtype == dtype
+    assert torch.equal(x, bt.bt_apply_reference(Minv, T, L, b))
+    if not lead and nb > 1:
+        xr = ref_bt.bt_apply(*(jnp.asarray(t.numpy()) for t in (Minv, T, L,
+                                                                  b)))
+        assert _rel(x.numpy(), np.asarray(xr)) <= 1e-13
+
+
+def test_bt_apply_rejects_bad_inputs():
+    """A mismatched dtype, a dtype the kernel does not take, a shape that
+    is not the factor's, mismatched batch axes, a non-contiguous factor or
+    right-hand side: raised on the CPU as on a card."""
+    Minv, T, L, b = _bt_inputs((2,), 5, 4, torch.float64, 0)
+    with pytest.raises(TypeError):
+        bt.bt_apply(Minv.float(), T, L, b)
+    with pytest.raises(TypeError):
+        bt.bt_apply(Minv, T, L.float(), b)
+    with pytest.raises(TypeError):
+        bt.bt_apply(*(t.to(torch.float16) for t in (Minv, T, L, b)))
+    with pytest.raises(ValueError):
+        bt.bt_apply(Minv[:, :4].contiguous(), T, L, b)
+    with pytest.raises(ValueError):
+        bt.bt_apply(Minv, T[:, :3].contiguous(), L, b)
+    with pytest.raises(ValueError):
+        bt.bt_apply(Minv, T, L, b[:1])
+    with pytest.raises(ValueError):
+        bt.bt_apply(Minv, T, L, b.reshape(-1))
+    with pytest.raises(ValueError):
+        bt.bt_apply(Minv.transpose(-1, -2), T, L, b)
+    with pytest.raises(ValueError):
+        bt.bt_apply(Minv, T, L.transpose(-1, -2), b)
+    with pytest.raises(ValueError):
+        bt.bt_apply(Minv, T, L, b.transpose(-1, -2).contiguous()
+                    .transpose(-1, -2))
+
+
+def test_refine_counts_the_applies_the_kernel_served():
+    """`bt.apply_kernel`: refine counts one in each `bt.apply` span whose
+    solve launched the kernel (bt_apply.launches moved, as the wrapper
+    moves it on a card), and none where the plain version served it."""
+    from proximalgalerkin_torch.core.logging import (counter, recorded, span,
+                                                     tracing)
+    rng = np.random.default_rng(5)
+    A = torch.as_tensor(np.eye(6) * 2.0 + 0.1 * rng.standard_normal((6, 6)))
+    # a solve with an inexact inverse, so refinement takes passes
+    inv = torch.linalg.inv(A + 0.05 * torch.eye(6, dtype=torch.float64))
+    b = torch.as_tensor(rng.standard_normal(6))
+
+    def plain(v):
+        return inv @ v
+
+    def kernel_served(v):
+        bt.bt_apply.launches += 1
+        return inv @ v
+
+    stop2 = torch.tensor(1e-60, dtype=torch.float64)
+    for solve, per_apply in ((kernel_served, 1), (plain, None)):
+        before = counter("bt.apply_kernel")
+        with tracing():
+            with span("test.refine"):
+                dx, _, p = bt.refine(solve, lambda v: A @ v, b, stop2, 5)
+        group = [g for g in recorded() if g[0].name == "test.refine"][-1]
+        applies = [s for s in group if s.name == "bt.apply"]
+        assert len(applies) == int(p) + 1 >= 3
+        assert all(s.counts.get("bt.apply_kernel") == per_apply
+                   for s in applies)
+        assert counter("bt.apply_kernel") - before == (
+            len(applies) if per_apply else 0)
+        assert _rel(dx.numpy(), np.linalg.solve(A.numpy(), b.numpy())) \
+            <= 1e-6

@@ -690,3 +690,124 @@ def test_recorder_on_under_a_card_only_profile(cuda):
     assert r.converged and names.count("p1.newton_step") == r.newton_its
     assert names.count("p1.inner_solve") >= r.newton_its
     assert sum(s.counts.get("host_reads", 0) for s in group) > 0
+
+
+# The block-Thomas apply kernel (csrc/btapply.cu): (S, nb, bs, dtype), S
+# None for an unbatched right-hand side. The distributed cell's blocking
+# (8 subdomains, 253 x 151) and the disk cell's (97 x 200), float32, an
+# unbatched right-hand side, nb = 1 and 2, bs = 1, 33 and 257, more
+# systems than the card runs clusters of 16 at once, several tiles a
+# product with fewer ring slots than tiles (1,100), the multiphase record's
+# f32 apply (1,212), the vector in device memory (4,500) and rows cut into
+# column tiles as well (7,200 f64, 15,000 f32)
+BT_SHAPES = [(8, 253, 151, torch.float64), (1, 97, 200, torch.float64),
+             (2, 51, 200, torch.float32), (None, 20, 33, torch.float64),
+             (3, 1, 257, torch.float64), (2, 2, 33, torch.float64),
+             (4, 10, 1, torch.float64), (2, 9, 257, torch.float64),
+             (40, 8, 64, torch.float64), (1, 12, 1100, torch.float64),
+             (1, 6, 1212, torch.float32), (1, 2, 4500, torch.float64),
+             (1, 2, 7200, torch.float64), (1, 2, 15000, torch.float32)]
+
+
+@pytest.mark.parametrize("S, nb, bs, dtype", BT_SHAPES)
+def test_bt_apply_kernel_matches_plain(cuda, S, nb, bs, dtype):
+    """The block-Thomas apply kernel against its plain version within
+    1e-12 relative to max |x| in f64, 1e-5 in f32: each row's sum runs
+    in another order than cuBLAS's, and the rounding travels through the
+    nb nested steps; chip_smoke.bt_system's factors contract (norms about
+    0.5), so the chain does not amplify it."""
+    from proximalgalerkin_torch.la.blocktri import bt_apply_reference
+    from proximalgalerkin_torch.ops.btapply import bt_apply
+    from chip_smoke import bt_system
+    Minv, T, L, b = bt_system(cuda, S, nb, bs, dtype, seed=nb * bs)
+    xk = bt_apply(Minv, T, L, b)
+    torch.cuda.synchronize()
+    assert xk.shape == b.shape and xk.dtype == dtype
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    assert _rel(xk, bt_apply_reference(Minv, T, L, b)) <= tol
+
+
+def test_bt_apply_kernel_gives_the_same_bits_twice(cuda):
+    from proximalgalerkin_torch.ops.btapply import bt_apply
+    from chip_smoke import bt_system
+    for S, nb, bs, dtype in BT_SHAPES[:3]:
+        Minv, T, L, b = bt_system(cuda, S, nb, bs, dtype, seed=1)
+        assert torch.equal(bt_apply(Minv, T, L, b), bt_apply(Minv, T, L, b))
+
+
+def test_bt_apply_kernel_replays_in_a_graph(cuda):
+    """Captured in a CUDA graph, the launch replays to the eager launch's
+    bits, on the right-hand side the static input holds at the replay."""
+    from proximalgalerkin_torch.ops.btapply import bt_apply
+    from chip_smoke import bt_system
+    Minv, T, L, b = bt_system(cuda, 8, 40, 151, torch.float64, seed=2)
+    static_b = b.clone()
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        bt_apply(Minv, T, L, static_b)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = bt_apply(Minv, T, L, static_b)
+    for rhs in (b, 2.0 * b - 1.0):
+        static_b.copy_(rhs)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, bt_apply(Minv, T, L, rhs))
+
+
+def test_bt_apply_launch_counter_counts(cuda):
+    from proximalgalerkin_torch.la import blocktri
+    from proximalgalerkin_torch.ops.btapply import bt_apply
+    from chip_smoke import bt_system
+    assert blocktri.bt_apply is bt_apply
+    Minv, T, L, b = bt_system(cuda, 2, 5, 33, torch.float64, seed=3)
+    before = bt_apply.launches
+    for _ in range(3):
+        bt_apply(Minv, T, L, b)
+    assert bt_apply.launches - before == 3
+    bt_apply(Minv.cpu(), T.cpu(), L.cpu(), b.cpu())    # the plain version
+    assert bt_apply.launches - before == 3
+    with pytest.raises(ValueError):
+        bt_apply(Minv, T, L, b.cpu())
+    with pytest.raises(ValueError):
+        bt_apply(Minv.cpu(), T, L, b)
+
+
+def test_bt_apply_kernel_counter_on_the_btlu_paths(cuda):
+    """`bt.apply_kernel`: one in each `bt.apply` span of a dense Thomas
+    factor on the card, none with the streamed factor; on the asm_btlu
+    path the apply's kernel launches twice when its graph is made (warm-up
+    and capture), and each replayed apply counts one."""
+    from proximalgalerkin_torch.core import logging as pglog
+    from proximalgalerkin_torch.mesh.unstructured import create_disk_mesh
+    from proximalgalerkin_torch.ops.btapply import bt_apply
+    from chip_smoke import _dist_obstacle, btlu_case
+    for name, per_apply in (("thomas_f32", 1), ("streamed", None)):
+        with pglog.tracing():
+            btlu_case(name, cuda)
+        group = [g for g in pglog.recorded() if g[0].name == "lvpp.solve"][-1]
+        applies = [s for s in group if s.name == "bt.apply"]
+        assert applies
+        assert all(s.counts.get("bt.apply_kernel") == per_apply
+                   for s in applies)
+    prob, dp = _dist_obstacle(cuda, create_disk_mesh(0.2))
+    N = prob.space.num_dofs
+    rng = np.random.default_rng(0)
+    x, v = dp.scatter(rng.standard_normal(N)), dp.scatter(
+        rng.standard_normal(N))
+    cv = dp._prep_coeffs({"phi": dp.scatter_cellq(
+        prob.problem.coeffs["phi"])} | {
+        k: dp.scatter_coeff(k, rng.standard_normal(
+            prob.space.spaces["u"].num_dofs)) for k in ("psi_k", "u_k")})
+    consts = {"alpha": torch.tensor(3.0, dtype=torch.float64, device=cuda)}
+    launches = bt_apply.launches
+    _, Minv = dp._schwarz_operators(x, cv, {}, consts, dp.bc_mask,
+                                    "asm_btlu", "f64")
+    assert bt_apply.launches - launches == 2
+    counted = pglog.counter("bt.apply_kernel")
+    z = Minv(v)
+    assert torch.equal(Minv(v), z)
+    assert pglog.counter("bt.apply_kernel") - counted == 2
+    assert bt_apply.launches - launches == 2
